@@ -1,32 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dense-SLAM frame step on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's two main paths on one NVIDIA card: the
+dense-SLAM frame step and stage 1 of the offline reconstruction system
+(make_fragments).
 
     python3 chip_smoke.py [--profile DIR]
 
 Phases:
   1. the card's name and power limit;
   2. build the CUDA kernels from csrc/ (nvcc, first use) and time the build;
-  3. the integrate kernel against its plain PyTorch version on the card, at
-     full width: 640x480 PrimeSense frames, a 40960-block grid, 2048 touched
-     blocks a frame;
-  4. the raycast march kernel against its plain version on that grid;
-  5. the slice: slam_step over the 8-frame bench orbit at that
+  3. the integrate kernel K1, then its V1 mode K4 (bf16 planes), each
+     against its plain PyTorch version on the card, at full width: 640x480
+     PrimeSense frames, a 40960-block grid, 2048 touched blocks a frame;
+  4. the raycast march kernel K2 against its plain version on that grid;
+  5. the SLAM slice: slam_step over the 8-frame bench orbit at that
      configuration, pose-gated on frames 0-3 (the reference loses track
      from frame 4 too), then over the first half of that orbit, held on
      every frame to the JAX package's SLAM test gates against the synthetic
-     truth, with the kernels' launch counts set to 0 just before and read
-     just after;
-  6. per-stage times (CUDA events, after warm-up), peak device memory, and
-     one JSON line describing each kernel: its time, its plain version's,
-     and its bound, the larger of its bytes over the card's memory rate and
-     its float32 operations over the card's float32 rate, both counted
-     from this run's inputs;
+     truth; then 4 frames of that half-orbit with O3DTPU_INTEGRATE_V1 set,
+     which integrate through K4. Each counted run sets the kernels' launch
+     counts to 0 just before it and reads them just after;
+  6. per-stage times of the frame step (CUDA events, after warm-up), peak
+     device memory;
   7. with --profile: torch.profiler over the steady frame step (device
      busy share, kernels by device time, host ops by their own time), the
-     trace written into DIR.
-The last line is {"ok": true, "device": {...}}. Any failed check raises, so
-the script exits non-zero and prints no result. It imports only torch
-and open3d_tpu_torch.
+     trace written into DIR;
+  8. the fragment slice: make_fragments on one 40-frame fragment of the
+     synthetic room at ReconstructionConfig's defaults (HYBRID odometry,
+     8^3-block fragment grid of 8192 blocks, 4096 touched blocks a frame),
+     counted like phase 5; fragment poses gated against the truth, the
+     fragment cloud against the scene's SDF, the PLY and JSON read back;
+  9. the fragment grid rebuilt from those poses: the row fuse K3 against
+     its plain version at frame 10's full-width work list, with and
+     without colour; per-stage times of the fragment path.
+Then one JSON line describing each kernel: its time, its plain version's,
+and its bound, the larger of its bytes over the card's memory rate and its
+float32 operations over the card's float32 rate, both counted from this
+run's inputs. The last line is {"ok": true, "device": {...}}. Any failed
+check raises, so the script exits non-zero and prints no result. It
+imports only torch and open3d_tpu_torch.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -51,9 +63,23 @@ K2_OPS_RAY = 21  # the ray direction and its squared length, once a ray
 K2_OPS_CHORD = 23  # three slab chords (7 each) and the step, per ray and (tile, block) step
 K2_OPS_SAMPLE = 12  # sample position (8), voxel index (3), decode of the sampled word (1)
 K2_OPS_CROSS = 35  # voxel-centre parameters of the bracket (2 x 15), interpolation (5)
+# K4 is K1's function on other samples: the depth is d_hi + d_lo (one add,
+# where K1 decodes d21 with one multiply), the new tsdf passes the relayout's
+# hi + lo split (two), and the colour needs no byte decode (three fewer)
+K4_OPS_VOXEL = K1_OPS_VOXEL - 1 + 1 + 2 - 3
+# K3, colour variant, per voxel: tsdf decode 1, w_sum 1, 1/w_sum 1, the
+# weighted sum 3, times inv 1, the s1.14 scale 1 (8); colour decode 6, three
+# weighted means of 4 (12), three repacks of 2 (6)
+K3_OPS_VOXEL = 32
+K3_BYTES_VOXEL = 28  # read tsdf_new, wn, cnew, tw, colour; write tw, colour
 K1_TOL = dict(weight_mismatch=5e-5, tsdf=1e-3, color_q999=2.0 / 255.0)
 K2_TOL = dict(hit_agree=0.999, median_dd=1e-4, frac_over_voxel=1e-3,
               frac_over_1e4=1e-3, max_abs_err=1e-5)
+# K3 and K4 target bit parity with their plain versions; the JAX package's
+# own bars (weight mismatch < 1e-6, tsdf 1e-3, colour 2/255 at q99.9) are
+# the outer limit
+K34_TOL = dict(weight_mismatch=0.0, max_abs_dtsdf=0.0, max_abs_dcolor=0.0)
+POSE_TOL = 0.05  # m and rad, tests/test_slam.py's gate
 
 
 def log(msg: str) -> None:
@@ -81,12 +107,17 @@ def bound(n_bytes: int, n_ops: int):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `reps` runs, by CUDA events."""
+    """Mean device time of fn() over `reps` runs, by CUDA events. A spin
+    kernel of about 50 ms runs first, so the host has queued every launch
+    before the first one starts: the events then time the device's work,
+    not the host's enqueue rate (a wrapper's Python checks take longer
+    than a small kernel)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -97,7 +128,246 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_steps(step, n: int, out_dir: str, step_ms: float) -> dict:
+def event_ms(fn):
+    """(fn(), its time in ms by CUDA events around this one call)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def row_parity(vbg_mod, live, tw_a, col_a, tw_b, col_b) -> dict:
+    """How far two payload states differ on the live rows: the weight
+    mismatch share, and the largest tsdf and colour differences."""
+    ta, wa = vbg_mod.unpack_tw(tw_a.reshape(tw_a.shape[0], -1)[live])
+    tb, wb = vbg_mod.unpack_tw(tw_b.reshape(tw_b.shape[0], -1)[live])
+    par = {
+        "weight_mismatch": float((wa != wb).float().mean()),
+        "max_abs_dtsdf": float((ta - tb).abs().max()),
+        "max_abs_dcolor": 0.0,
+    }
+    if col_a is not None:
+        ca = vbg_mod.unpack_rgb(col_a.reshape(col_a.shape[0], -1)[live])
+        cb = vbg_mod.unpack_rgb(col_b.reshape(col_b.shape[0], -1)[live])
+        par["max_abs_dcolor"] = float((ca - cb).abs().max())
+    par["max_abs_err"] = max(float((wa - wb).abs().max()), par["max_abs_dtsdf"],
+                             par["max_abs_dcolor"])
+    return par
+
+
+def check_bit_parity(name: str, par: dict) -> None:
+    for k, bar in K34_TOL.items():
+        check(par[k] <= bar, f"{name} {k} {par[k]} > {bar}: {par}")
+
+
+class MemorySequence:
+    """What make_fragments reads: intrinsic, len and read_frame(i)."""
+
+    def __init__(self, intrinsic, depths, colors):
+        self.intrinsic, self.depths, self.colors = intrinsic, depths, colors
+
+    def __len__(self):
+        return self.depths.shape[0]
+
+    def read_frame(self, i):
+        return self.depths[i], self.colors[i]
+
+
+def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
+                    launch_counts, parity_frame: int = 10, profile_dir=None,
+                    **cfg_overrides) -> dict:
+    """Phases 8-9: the fragment slice through make_fragments, its gates, K3
+    against its plain version at the slice's own work list, and the
+    fragment path's stage times. Returns what the summary and the kernel
+    line report."""
+    import torch
+
+    from open3d_tpu_torch import io as rio
+    from open3d_tpu_torch.core import hashmap as hm
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+    from open3d_tpu_torch.pipelines import odometry as odo
+    from open3d_tpu_torch.pipelines import pose_graph as pg
+    from open3d_tpu_torch.pipelines import reconstruction as rc
+
+    # ---- 8. the fragment slice
+    depths, colors, extr, _ = synthetic.render_sequence(n_frames, intrinsic=intr, span=span,
+                                                        device=dev)
+    seq = MemorySequence(intr, depths, colors)
+    rcfg = rc.ReconstructionConfig(path_output=out_dir, **cfg_overrides)
+    check(rcfg.fragment_size == n_frames, "one fragment")
+    # Where make_fragments' time goes: each stage function is timed on the
+    # host clock with a device sync on both sides, summed over its calls.
+    # The unoptimised fragment graph is kept for timing phase 9.
+    spied = {"_read_rgbd": rc, "_odometry_pair": rc, "integrate_fragment_frame": rc,
+             "global_optimization": pg, "write_pose_graph": pg,
+             "extract_point_cloud": vbg_mod, "write_point_cloud": rio}
+    originals = {name: getattr(mod, name) for name, mod in spied.items()}
+    inside_ms = {name: 0.0 for name in spied}
+    graphs_in = []
+
+    def timed(name):
+        def run(*a, **kw):
+            if name == "global_optimization":
+                graphs_in.append((a, kw))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[name](*a, **kw)
+            torch.cuda.synchronize()
+            inside_ms[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    for name, mod in spied.items():
+        setattr(mod, name, timed(name))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        paths = rc.make_fragments(seq, rcfg, device=dev)
+        torch.cuda.synchronize()
+        make_fragments_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    finally:
+        for name, mod in spied.items():
+            setattr(mod, name, originals[name])
+    inside_ms["rest"] = make_fragments_ms - sum(inside_ms.values())
+    log(f"[8] make_fragments {make_fragments_ms:.1f} ms, launches {launches}, "
+        f"peak {peak_bytes} B above the {base_bytes} B held before; inside it, ms: "
+        f"{json.dumps(inside_ms)}")
+    check(launches["fuse_blocks"] == n_frames, f"K3 once per integrated frame {launches}")
+    check(launches["integrate_blocks_v2"] == 0 and launches["integrate_blocks_v1"] == 0,
+          f"the 8^3 fragment grid takes K3 only {launches}")
+
+    json_path = os.path.join(out_dir, "fragments", "fragment_000.json")
+    check(paths == [os.path.join(out_dir, "fragments", "fragment_000.ply")]
+          and os.path.isfile(paths[0]) and os.path.isfile(json_path), f"artifacts {paths}")
+    graph = pg.read_pose_graph(json_path, device=dev)
+    check(graph.poses.shape[0] == n_frames, f"{graph.poses.shape[0]} nodes")
+    truth = extr[0] @ lie.invert_se3(extr)  # frame i -> frame 0
+    rot, trans = lie.pose_distance(graph.poses, truth)
+    n_edges_in = int(graphs_in[0][0][0].edges.shape[0])
+    frag = {"max_rot_err": float(rot.max()), "max_trans_err": float(trans.max()),
+            "edges": n_edges_in, "edges_kept": int(graph.edge_valid.sum()),
+            "loop_closures_kept": int((graph.edge_valid & graph.uncertain).sum())}
+    cloud = rio.read_point_cloud(paths[0], device=dev)
+    n_pts = int(cloud.count())
+    p0 = lie.transform_points(lie.invert_se3(extr[0]), cloud.positions[cloud.mask])
+    sdf = synthetic.default_scene_sdf(p0).abs()
+    frag.update(points=n_pts, hit_cap=n_pts >= rcfg.fragment_point_capacity,
+                sdf_median_m=float(sdf.median()), sdf_q90_m=float(torch.quantile(sdf, 0.9)))
+    log(f"[8] fragment {frag}; trans errs {[round(float(t), 5) for t in trans]}")
+    vox = rcfg.voxel_size * 2
+    check(frag["max_trans_err"] < POSE_TOL and frag["max_rot_err"] < POSE_TOL,
+          f"fragment poses vs truth {frag}")
+    check(n_pts > 10000, f"fragment cloud size {frag}")
+    check(frag["sdf_median_m"] < vox and frag["sdf_q90_m"] < 2 * vox, f"cloud on the surface {frag}")
+
+    # ---- 9. the fragment grid again from those poses: K3 parity at the
+    # parity frame's work list, and the stage times
+    rgbds = [rc._read_rgbd(seq, i, rcfg, dev) for i in range(n_frames)]
+    poses = graph.poses.cpu().numpy()
+    grid = rc.create_fragment_grid(rcfg, dev)
+    C = grid.capacity
+    integrate_ms = []
+    k3_out = None
+    for i in range(n_frames):
+        if i == parity_frame:
+            k3_out = k3_parity(grid, rgbds[i], poses[i], intr, rcfg, hm, vbg_mod, k3)
+        grid, ms = event_ms(lambda: rc.integrate_fragment_frame(grid, rgbds[i], poses[i], intr,
+                                                                rcfg))
+        integrate_ms.append(ms)
+    again = vbg_mod.extract_point_cloud(grid, point_capacity=rcfg.fragment_point_capacity,
+                                        weight_threshold=2.0)
+    check(int(again.count()) == n_pts, f"the PLY holds the grid's cloud: {int(again.count())}")
+    extract_ms = [event_ms(lambda: vbg_mod.extract_point_cloud(
+        grid, point_capacity=rcfg.fragment_point_capacity, weight_threshold=2.0))[1]
+        for _ in range(3)]
+    pair_ms, info_ms = [], []
+    for i in range(5):
+        res, ms = event_ms(lambda: odo.rgbd_odometry_multi_scale(
+            rgbds[i], rgbds[i + 1], intr, method=rcfg.odometry_method))
+        pair_ms.append(ms)
+        info_ms.append(event_ms(lambda: odo.compute_odometry_information_matrix(
+            rgbds[i].depth, rgbds[i + 1].depth, intr, res.transformation))[1])
+    a, kw = graphs_in[0]
+    opt_ms = [event_ms(lambda: pg.global_optimization(*a, **kw))[1] for _ in range(3)]
+    times = {"make_fragments": make_fragments_ms,
+             "odometry_pair": statistics.median(pair_ms),
+             "information_matrix": statistics.median(info_ms),
+             "global_optimization": statistics.median(opt_ms),
+             "fragment_frame_integrate": statistics.median(integrate_ms),
+             "extract_point_cloud": statistics.median(extract_ms)}
+    log("[9] fragment stage medians ms " + json.dumps({k: round(v, 3) for k, v in times.items()})
+        + f" | {C} blocks, active {int(grid.num_active_blocks())}")
+    prof = None
+    if profile_dir:
+        def pair(i):
+            odo.rgbd_odometry_multi_scale(rgbds[i], rgbds[i + 1], intr, method=rcfg.odometry_method)
+
+        prof = profile_steps(pair, 3, profile_dir, times["odometry_pair"], "odometry_pair")
+        log("[9] profile of the odometry pair " + json.dumps(prof))
+    return {"launches": launches, "fragment": frag, "times": times, "peak_bytes": peak_bytes,
+            "inside_ms": inside_ms, "k3": k3_out, "profile": prof}
+
+
+def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
+    """K3 and fuse_blocks_plain from identical copies of the grid, on this
+    frame's work list and `_new_voxel_values` samples, with and without
+    colour; then their times and the bound."""
+    import numpy as np
+    import torch
+
+    C = grid.capacity
+    extr = torch.as_tensor(np.linalg.inv(pose), dtype=torch.float32).to(grid.device)
+    keys, touched = vbg_mod.compute_unique_block_coordinates(
+        grid, rgbd.depth, intr, extr, depth_max=rcfg.depth_max, frame_block_capacity=4096)
+    table, slot, ok = hm.activate(grid.table, keys)
+    rows = torch.where(ok, slot, C).to(torch.int32).contiguous()
+    tsdf_new, wn, cnew = vbg_mod._new_voxel_values(
+        grid, keys, rgbd.depth, rgbd.color, intr, extr, rcfg.depth_max, 1.0, ok)
+    live = rows[rows < C].long()
+    out = {"rows": rows.numel(), "live_rows": live.numel(), "touched": int(touched)}
+    for with_color in (True, False):
+        tw_a, tw_b = grid.tw_flat.clone(), grid.tw_flat.clone()
+        col_a = grid.color_flat.clone() if with_color else None
+        col_b = grid.color_flat.clone() if with_color else None
+        c_new = cnew if with_color else None
+        k3.fuse_blocks(tw_a, col_a, rows, tsdf_new, wn, c_new)
+        k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, c_new)
+        torch.cuda.synchronize()
+        par = row_parity(vbg_mod, live, tw_a, col_a, tw_b, col_b)
+        par["rows_changed"] = int((tw_a[live] != grid.tw_flat[live]).any(-1).sum())
+        name = "colour" if with_color else "no_colour"
+        log(f"[9] K3 {name}: {out} {par}")
+        check_bit_parity(f"K3 {name}", par)
+        check(par["rows_changed"] > live.numel() // 2, f"K3 updated the live rows {par}")
+        out[name] = par
+        if with_color:
+            out["ms"] = cuda_ms(lambda: k3.fuse_blocks(tw_a, col_a, rows, tsdf_new, wn, c_new),
+                                reps=20)
+            out["plain_ms"] = cuda_ms(
+                lambda: k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, c_new), reps=3)
+    B3 = grid.tw_flat.shape[1]
+    out["bytes"] = live.numel() * B3 * K3_BYTES_VOXEL + rows.numel() * 4
+    out["ops"] = live.numel() * B3 * K3_OPS_VOXEL
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
+    out["max_abs_err"] = max(out["colour"]["max_abs_err"], out["no_colour"]["max_abs_err"])
+    log(f"[9] K3 {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound "
+        f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bytes']} B, {out['ops']} flop)")
+    return out
+
+
+def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
     Chrome trace and the summary into `out_dir`."""
@@ -113,7 +383,7 @@ def profile_steps(step, n: int, out_dir: str, step_ms: float) -> dict:
             step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace = os.path.join(out_dir, "slam_step_trace.json")
+    trace = os.path.join(out_dir, f"{label}_trace.json")
     prof.export_chrome_trace(trace)  # ~10k device ops a step: tens of MB, so gzip it
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
@@ -140,7 +410,7 @@ def profile_steps(step, n: int, out_dir: str, step_ms: float) -> dict:
         "top_host_self": [[k, host_us[k] / 1e3 / n]
                           for k in sorted(host_us, key=host_us.get, reverse=True)[:15]],
     }
-    with open(os.path.join(out_dir, "profile.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{label}_profile.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return summary
 
@@ -172,8 +442,20 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
     from open3d_tpu_torch.models import dense_slam
     from open3d_tpu_torch.ops.kernels import _build
+    from open3d_tpu_torch.ops.kernels import integrate as k4
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
     from open3d_tpu_torch.ops.kernels import raycast as k2
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    wrappers = {"integrate_blocks_v2": k1.integrate_blocks_v2, "march_tiles": k2.march_tiles,
+                "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks}
+
+    def launch_counts() -> dict:
+        return {n: f.launches for n, f in wrappers.items()}
+
+    def zero_counts() -> None:
+        for f in wrappers.values():
+            f.launches = 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -256,6 +538,34 @@ def main(argv=None) -> int:
     log(f"[3] K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound {k1_bound_ms:.4f} ms "
         f"by {k1_bound_by} ({k1_bytes} B, {k1_ops} flop)")
 
+    # ---- 3b. K4 against its plain version: frame 1's work list again, on
+    # identical copies of the grid that K1 built
+    planes = k4.prepare_planes(depths[1], colors[1], True)
+    k4_args = (rows, coords, planes, intr, extr[1], grid.voxel_size, grid.sdf_trunc,
+               cfg.depth_max)
+    tw_a, col_a = grid.tw.clone(), grid.color.clone()
+    tw_b, col_b = grid.tw.clone(), grid.color.clone()
+    k4.integrate_blocks(tw_a, col_a, *k4_args)
+    k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args)
+    torch.cuda.synchronize()
+    live = rows[rows < C].long()
+    k4_par = row_parity(vbg_mod, live, tw_a, col_a, tw_b, col_b)
+    k4_par["rows_changed"] = int((tw_a.reshape(C + 1, -1)[live]
+                                  != grid.tw.reshape(C + 1, -1)[live]).any(-1).sum())
+    log(f"[3] K4 frame 1: live {live.numel()} {k4_par}")
+    check_bit_parity("K4", k4_par)
+    check(k4_par["rows_changed"] > live.numel() // 2, f"K4 updated the live rows {k4_par}")
+    check(int(tw_a[C].abs().sum()) == 0 and int(col_a[C].abs().sum()) == 0,
+          "K4 dump row stays zero")
+    k4_ms = cuda_ms(lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20)
+    k4_plain_ms = cuda_ms(lambda: k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args), reps=3)
+    k4_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + planes.numel() * 2
+    k4_ops = n_live * 4096 * K4_OPS_VOXEL
+    k4_bound_ms, k4_bound_by = bound(k4_bytes, k4_ops)
+    log(f"[3] K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound {k4_bound_ms:.4f} ms "
+        f"by {k4_bound_by} ({k4_bytes} B, {k4_ops} flop)")
+    del tw_a, col_a, tw_b, col_b
+
     # ---- 4. K2 against its plain version on that grid, from frame 1's pose
     E = extr[1]
     lists = k2.build_tile_lists(grid, intr, E, cfg.depth_min, cfg.depth_max)
@@ -317,10 +627,10 @@ def main(argv=None) -> int:
         md = torch.zeros_like(depths[0])
         per_frame, rot, trans, res = [], [], [], None
         for i in range(depths.shape[0]):
-            n1, n2 = k1.integrate_blocks_v2.launches, k2.march_tiles.launches
+            before = launch_counts()
             res = dense_slam.slam_step(model, depths[i], colors[i], md, intr)
             model, md = res.model, res.raycast_depth
-            per_frame.append((k1.integrate_blocks_v2.launches - n1, k2.march_tiles.launches - n2))
+            per_frame.append({n: c - before[n] for n, c in launch_counts().items()})
             r, t = lie.pose_distance(model.T_frame_to_world, lie.invert_se3(extr[i]))
             rot.append(float(r))
             trans.append(float(t))
@@ -332,14 +642,15 @@ def main(argv=None) -> int:
     check(max(trans08[:4]) < 0.05 and max(rot08[:4]) < 0.05,
           f"bench orbit pose error vs truth, frames 0-3: {trans08[:4]} {rot08[:4]}")
     depths, colors, extr, _ = synthetic.render_sequence(8, intrinsic=intr, span=0.4, device=dev)
-    k1.integrate_blocks_v2.launches = 0
-    k2.march_tiles.launches = 0
+    zero_counts()
     model, md, res, per_frame, rot, trans = run_slice(depths, colors, extr)
     torch.cuda.synchronize()
-    launches = {"integrate_blocks_v2": k1.integrate_blocks_v2.launches,
-                "march_tiles": k2.march_tiles.launches}
+    launches = launch_counts()
     log(f"[5] launches {launches}, per frame {per_frame}")
-    check(all(a >= 1 and b >= 1 for a, b in per_frame), "both kernels ran on every frame")
+    check(all(f["integrate_blocks_v2"] >= 1 and f["march_tiles"] >= 1 for f in per_frame),
+          "K1 and K2 ran on every frame")
+    check(launches["fuse_blocks"] == 0 and launches["integrate_blocks_v1"] == 0,
+          f"the 16^3 default path takes K1 only {launches}")
     truth = depths[-1]
     check(bool(torch.isfinite(md).all()) and tuple(md.shape) == tuple(truth.shape),
           "raycast depth finite, (H, W)")
@@ -359,6 +670,27 @@ def main(argv=None) -> int:
     check(slice_res["raycast_valid_frac"] > 0.5, f"raycast covers the frame {slice_res}")
     check(slice_res["raycast_median_err_m"] < 0.01, f"raycast median error {slice_res}")
     check(slice_res["raycast_gross_frac"] < 0.15, f"raycast gross outliers {slice_res}")
+
+    # ---- 5b. the same half-orbit's first 4 frames under O3DTPU_INTEGRATE_V1:
+    # the 16^3 integrate takes K4 in place of K1
+    prev_v1 = os.environ.get("O3DTPU_INTEGRATE_V1")
+    os.environ["O3DTPU_INTEGRATE_V1"] = "1"
+    try:
+        zero_counts()
+        _, _, _, per_frame_v1, rot_v1, trans_v1 = run_slice(depths[:4], colors[:4], extr[:4])
+        torch.cuda.synchronize()
+        launches_v1 = launch_counts()
+    finally:
+        if prev_v1 is None:
+            os.environ.pop("O3DTPU_INTEGRATE_V1")
+        else:
+            os.environ["O3DTPU_INTEGRATE_V1"] = prev_v1
+    v1_res = {"max_rot_err": max(rot_v1), "max_trans_err": max(trans_v1),
+              "launches": launches_v1}
+    log(f"[5] O3DTPU_INTEGRATE_V1 slice {v1_res}; per frame {per_frame_v1}")
+    check(max(trans_v1) < POSE_TOL and max(rot_v1) < POSE_TOL, f"V1 pose error vs truth {v1_res}")
+    check(all(f["integrate_blocks_v1"] >= 1 and f["integrate_blocks_v2"] == 0
+              for f in per_frame_v1), f"K4 in place of K1 on every frame {per_frame_v1}")
 
     # ---- 6. per-stage times (after the warm-up above), peak memory
     torch.cuda.reset_peak_memory_stats()
@@ -393,6 +725,15 @@ def main(argv=None) -> int:
 
         prof = profile_steps(step, 3, opts.profile, medians["step"])
         log("[7] profile " + json.dumps(prof))
+    del model, md, res
+    torch.cuda.empty_cache()
+
+    # ---- 8-9. the fragment slice: one 40-frame fragment of the synthetic
+    # room, about 1.8 deg and 4 cm a frame, at ReconstructionConfig's defaults
+    with tempfile.TemporaryDirectory() as out_dir:
+        fr = fragment_phases(dev, intr, 40, 1.2, out_dir, zero_counts, launch_counts,
+                             profile_dir=opts.profile)
+    k3_out = fr["k3"]
 
     kernels = [
         {
@@ -415,9 +756,33 @@ def main(argv=None) -> int:
             "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
             "parity": k2_par, "tolerance": K2_TOL,
         },
+        {
+            "name": "fuse_blocks", "route": "cuda",
+            "source": "open3d_tpu_torch/csrc/tsdf.cu",
+            "replaces": "open3d_tpu/ops/pallas/tsdf.py:56",
+            "launches": fr["launches"]["fuse_blocks"],
+            "max_abs_err": k3_out["max_abs_err"],
+            "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "plain_ms": k3_out["plain_ms"],
+            "bound_ms": k3_out["bound_ms"], "bound_by": k3_out["bound_by"], "library_ms": None,
+            "parity": {k: k3_out[k] for k in ("colour", "no_colour")}, "tolerance": K34_TOL,
+        },
+        {
+            "name": "integrate_blocks_v1", "route": "cuda",
+            "source": "open3d_tpu_torch/csrc/integrate2.cu",
+            "replaces": "open3d_tpu/ops/pallas/integrate.py:61",
+            "launches": launches_v1["integrate_blocks_v1"],
+            "max_abs_err": k4_par["max_abs_err"],
+            "ms": k4_ms, "kernel_ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
+            "parity": k4_par, "tolerance": K34_TOL,
+        },
     ]
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
-                                   "slice": slice_res, "card": smi}))
+                                   "slice": slice_res, "v1_slice": v1_res,
+                                   "fragment": fr["fragment"],
+                                   "fragment_stage_median_ms": fr["times"],
+                                   "make_fragments_inside_ms": fr["inside_ms"],
+                                   "fragment_peak_bytes": fr["peak_bytes"], "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

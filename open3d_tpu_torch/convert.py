@@ -4,7 +4,9 @@ The grid's arrays use the flat (C+1, B^3) schema of the JAX package's
 VoxelBlockGrid checkpoint (`write_voxel_block_grid`: table, tw, color,
 voxel_size, block_resolution, sdf_trunc), so a checkpoint written by the
 JAX package loads here with `vbg_from_numpy(**np.load(path))` and without
-importing JAX.
+importing JAX. Any block resolution carries over: an 8^3 grid's payload is
+(C+1, 4, 128) in both packages. Pose graphs carry their seven arrays by
+field name, point clouds their full-capacity positions, mask and attributes.
 """
 
 from __future__ import annotations
@@ -15,8 +17,37 @@ import numpy as np
 import torch
 
 from open3d_tpu_torch.core.platform import default_device
+from open3d_tpu_torch.geometry.pointcloud import PointCloud
 from open3d_tpu_torch.geometry.voxel_block_grid import VoxelBlockGrid, payload_shape
 from open3d_tpu_torch.models.dense_slam import SLAMConfig, SLAMModel
+from open3d_tpu_torch.pipelines.pose_graph import PoseGraph
+
+POSE_GRAPH_FIELDS = ("poses", "edges", "transformations", "informations", "uncertain",
+                     "confidence", "edge_valid")
+
+
+def pose_graph_from_numpy(arrays: dict, device=None) -> PoseGraph:
+    """A PoseGraph from a dict of its seven arrays (POSE_GRAPH_FIELDS)."""
+    dev = default_device(device)
+    return PoseGraph(**{f: torch.from_numpy(np.array(arrays[f])).to(dev) for f in POSE_GRAPH_FIELDS})
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> dict:
+    return {f: getattr(graph, f).cpu().numpy() for f in POSE_GRAPH_FIELDS}
+
+
+def point_cloud_from_numpy(arrays: dict, device=None) -> PointCloud:
+    """A PointCloud from {"positions", "mask", attribute: ...} at full
+    capacity, rows kept as they are (invalid rows included)."""
+    dev = default_device(device)
+    t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in arrays.items()}
+    return PointCloud(positions=t.pop("positions"), mask=t.pop("mask"), attrs=t)
+
+
+def point_cloud_to_numpy(pcd: PointCloud) -> dict:
+    out = {"positions": pcd.positions.cpu().numpy(), "mask": pcd.mask.cpu().numpy()}
+    out.update({k: v.cpu().numpy() for k, v in pcd.attrs.items()})
+    return out
 
 
 def vbg_from_numpy(

@@ -93,12 +93,12 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def rt_to_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    """(..., 3, 3), (..., 3) -> (..., 4, 4). Built by concatenation, not
+    in-place writes, so that torch.func.vmap and jacfwd trace it."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom = torch.cat([bottom[..., :3], torch.ones_like(bottom[..., 3:])], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""Dense image ops for the tracking stage (port of the depth and normal
-functions of open3d_tpu/geometry/image.py).
+"""Dense image ops for the tracking stage (port of the depth, intensity,
+normal and sampling functions of open3d_tpu/geometry/image.py).
 
-Depth is (H, W) float32 metres with 0 marking invalid pixels. Every filter
-is a sum of shifted copies, in the JAX package's order, so results agree to
+Depth is (H, W) float32 metres with 0 marking invalid pixels; colour is
+(H, W, 3) float32 in [0, 1]; intensity is (H, W) float32. Every filter is a
+sum of shifted copies, in the JAX package's order, so results agree to
 float32 rounding.
 """
 
@@ -20,6 +21,12 @@ def clip_transform(depth_raw: torch.Tensor, depth_scale: float, depth_min: float
     return torch.where(valid, d, 0.0)
 
 
+def rgb_to_gray(color: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) -> (H, W) with the ITU-R BT.601 weights."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=color.dtype, device=color.device)
+    return color @ w
+
+
 def _shift2d(img: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
     """Shift an (H, W[, C]) image; vacated pixels get `fill`."""
     out = torch.roll(img, shifts=(dy, dx), dims=(0, 1))
@@ -30,6 +37,35 @@ def _shift2d(img: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
     if img.ndim == 3:
         valid = valid[..., None]
     return torch.where(valid, out, torch.as_tensor(fill, dtype=img.dtype, device=img.device))
+
+
+def filter_gaussian(img: torch.Tensor, kernel_size: int = 3, sigma: float = 1.0) -> torch.Tensor:
+    """Separable Gaussian blur of an (H, W[, C]) image, renormalised at the
+    border by the same stencil over an all-ones image."""
+    r = kernel_size // 2
+    x = torch.arange(-r, r + 1, dtype=torch.float32, device=img.device)
+    k = torch.exp(-(x * x) / (2.0 * sigma * sigma))
+    k = k / torch.sum(k)
+    squeeze = img.ndim == 2
+    data = img[..., None] if squeeze else img
+    out = torch.zeros_like(data)
+    for i, wy in enumerate(k):
+        row = torch.zeros_like(data)
+        for j, wx in enumerate(k):
+            row = row + wx * _shift2d(data, i - r, j - r, fill=0.0)
+        out = out + wy * row
+    ones = torch.ones(data.shape[:2] + (1,), dtype=data.dtype, device=img.device)
+    norm = torch.zeros_like(ones)
+    for i, wy in enumerate(k):
+        for j, wx in enumerate(k):
+            norm = norm + wy * wx * _shift2d(ones, i - r, j - r, fill=0.0)
+    out = out / torch.clamp(norm, min=1e-8)
+    return out[..., 0] if squeeze else out
+
+
+def pyrdown(img: torch.Tensor) -> torch.Tensor:
+    """Gaussian blur and 2x decimation."""
+    return filter_gaussian(img, kernel_size=5, sigma=1.0)[::2, ::2].contiguous()
 
 
 def filter_bilateral_depth(depth, kernel_size: int = 5, sigma_space: float = 2.0, sigma_depth: float = 0.05):
@@ -110,6 +146,79 @@ def create_normal_map(vertex_map: torch.Tensor) -> torch.Tensor:
     flip = torch.sum(n * vertex_map, dim=-1, keepdim=True) > 0.0
     n = torch.where(flip, -n, n)
     return torch.where(valid[..., None], n, 0.0)
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, valid_fill=0.0) -> torch.Tensor:
+    """Bilinearly sample an (H, W[, C]) image at float pixel coordinates uv
+    (..., 2) = (u = x, v = y). Out-of-bounds samples get `valid_fill`."""
+    H, W = img.shape[0], img.shape[1]
+    u = uv[..., 0]
+    v = uv[..., 1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = (u - u0)[..., None] if img.ndim == 3 else u - u0
+    dv = (v - v0)[..., None] if img.ndim == 3 else v - v0
+    u0i = u0.to(torch.int64)
+    v0i = v0.to(torch.int64)
+
+    def gather(vi, ui):
+        return img[torch.clamp(vi, 0, H - 1), torch.clamp(ui, 0, W - 1)]
+
+    g00 = gather(v0i, u0i)
+    g01 = gather(v0i, u0i + 1)
+    g10 = gather(v0i + 1, u0i)
+    g11 = gather(v0i + 1, u0i + 1)
+    top = g00 * (1 - du) + g01 * du
+    bot = g10 * (1 - du) + g11 * du
+    out = top * (1 - dv) + bot * dv
+    inb = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    if img.ndim == 3:
+        inb = inb[..., None]
+    return torch.where(inb, out, torch.as_tensor(valid_fill, dtype=out.dtype, device=out.device))
+
+
+def bilinear_sample_with_grad(img: torch.Tensor, uv: torch.Tensor):
+    """(value, d/du, d/dv) of the bilinear interpolant of an (H, W) or
+    (H, W, C) image at uv (..., 2): the exact partial derivatives, which
+    Gauss-Newton on a bilinear residual needs. Channels share one set of
+    four flat corner gathers. Out-of-bounds samples return 0 everywhere."""
+    H, W = img.shape[0], img.shape[1]
+    multi = img.ndim == 3
+    flat = img.reshape(H * W, -1) if multi else img.reshape(H * W)
+    u = uv[..., 0]
+    v = uv[..., 1]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = u - u0
+    dv = v - v0
+    u0i = u0.to(torch.int64)
+    v0i = v0.to(torch.int64)
+
+    def gather(vi, ui):
+        return flat[torch.clamp(vi, 0, H - 1) * W + torch.clamp(ui, 0, W - 1)]
+
+    g00 = gather(v0i, u0i)
+    g01 = gather(v0i, u0i + 1)
+    g10 = gather(v0i + 1, u0i)
+    g11 = gather(v0i + 1, u0i + 1)
+    if multi:
+        du = du[..., None]
+        dv = dv[..., None]
+    val = (g00 * (1 - du) + g01 * du) * (1 - dv) + (g10 * (1 - du) + g11 * du) * dv
+    gu = (g01 - g00) * (1 - dv) + (g11 - g10) * dv
+    gv = (g10 - g00) * (1 - du) + (g11 - g01) * du
+    inb = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
+    if multi:
+        inb = inb[..., None]
+    return torch.where(inb, val, 0.0), torch.where(inb, gu, 0.0), torch.where(inb, gv, 0.0)
+
+
+def build_intensity_pyramid(color: torch.Tensor, levels: int):
+    gray = rgb_to_gray(color) if color.ndim == 3 else color
+    pyr = [gray]
+    for _ in range(levels - 1):
+        pyr.append(pyrdown(pyr[-1]))
+    return pyr
 
 
 def build_depth_pyramid(depth: torch.Tensor, levels: int, diff_threshold: float = 0.07):

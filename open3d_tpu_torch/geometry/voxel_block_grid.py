@@ -1,5 +1,6 @@
 """Sparse TSDF voxel block grid (port of the create / touch / integrate /
-raycast path of open3d_tpu/geometry/voxel_block_grid.py).
+raycast / point-cloud extraction path of
+open3d_tpu/geometry/voxel_block_grid.py).
 
 The layout is the JAX package's, bit for bit:
 - `table` (C, 2) int32 packed block keys (core/hashmap.py); the slot index
@@ -12,18 +13,26 @@ The layout is the JAX package's, bit for bit:
 `integrate` and `raycast` update and read the grid in place: the tensors
 of a VoxelBlockGrid are mutated by `integrate`, where the JAX package
 donated them and got new ones back.
+
+Integrate takes one of three kernels, as the JAX package does on the TPU:
+16^3 grids the fused integrate K1 (or the V1 integrate K4 when
+O3DTPU_INTEGRATE_V1 is set), other resolutions per-voxel samples in plain
+torch and the row fuse K3.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
 from open3d_tpu_torch.core import hashmap as hm
+from open3d_tpu_torch.core.masking import FAR_COORD, compact_indices
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.geometry.pointcloud import PointCloud
 
 _TSDF_SCALE = 16383.0
 
@@ -182,6 +191,56 @@ def compute_unique_block_coordinates(
 # ---------------------------------------------------------------------------
 
 
+def _voxel_local_coords(B: int, device=None) -> torch.Tensor:
+    """(B^3, 3) int32 local voxel coords, x fastest (flat index x + y B +
+    z B^2)."""
+    r = torch.arange(B, dtype=torch.int32, device=device)
+    z, y, x = torch.meshgrid(r, r, r, indexing="ij")
+    return torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+
+
+def _new_voxel_values(
+    vbg, block_keys, depth, color, intrinsic, extrinsic, depth_max, depth_scale, ok
+):
+    """Per-voxel projective SDF samples for the touched blocks: (tsdf_new
+    (M, B^3) f32, wn (M, B^3) f32, cnew (M, B^3) int32 packed colour or
+    None). Pixels are sampled by flat gathers."""
+    B = vbg.block_resolution
+    dev = depth.device
+    coords = hm.unpack_coords(block_keys)  # (M, 3)
+    local = _voxel_local_coords(B, dev)  # (B^3, 3)
+    origin = coords.to(torch.float32) * vbg.block_size
+    pw = origin[:, None, :] + local.to(torch.float32) * vbg.voxel_size
+    E = extrinsic.to(device=dev, dtype=torch.float32)
+    R = E[:3, :3]
+    t = E[:3, 3]
+    # The JAX package's CPU form, a float32 (..., 3) @ (3, 3) product, on
+    # every device: on the card a float32 matmul is full float32 (TF32 off,
+    # PyTorch's default). The JAX package's TPU-only elementwise form exists
+    # to avoid the TPU's one-pass-bf16 matmul, which the card does not use.
+    pc = pw @ R.T + t
+    xc, yc, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    u = xc / torch.clamp(z, min=1e-6) * intrinsic.fx + intrinsic.cx
+    v = yc / torch.clamp(z, min=1e-6) * intrinsic.fy + intrinsic.cy
+    ui = torch.round(u).to(torch.int64)
+    vi = torch.round(v).to(torch.int64)
+    Wd = intrinsic.width
+    inb = (z > 1e-4) & (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < intrinsic.height)
+    lin = torch.where(inb, vi * Wd + torch.clamp(ui, 0, Wd - 1), 0)
+
+    d = depth.reshape(-1)[lin] / depth_scale  # (M, B^3) flat gather
+    d_ok = inb & (d > 0) & (d < depth_max)
+    sdf = d - z
+    keep = d_ok & (sdf >= -vbg.sdf_trunc)
+    tsdf_new = torch.clamp(sdf / vbg.sdf_trunc, -1.0, 1.0)
+    wn = (keep & ok[:, None]).to(torch.float32)
+
+    cnew = None
+    if color is not None and vbg.has_color:
+        cnew = pack_rgb(color).reshape(-1)[lin]  # (M, B^3) int32
+    return tsdf_new.contiguous(), wn.contiguous(), cnew
+
+
 def integrate(
     vbg: VoxelBlockGrid,
     block_keys: torch.Tensor,  # (M, 2) packed, invalid-padded (from touch)
@@ -193,36 +252,61 @@ def integrate(
     depth_scale: float = 1.0,
     weight_max: float = 10000.0,
 ) -> VoxelBlockGrid:
-    """Fuse one depth (+colour) frame: activate the blocks, then the fused
-    integrate kernel over all M of them in one pass (blocks that could not
-    be activated go to the dump row and are skipped).
+    """Fuse one depth (+colour) frame: activate the blocks, then one kernel
+    pass over all M of them (blocks that could not be activated go to the
+    dump row and are skipped).
 
     depth is metric float32 (or raw with `depth_scale`); extrinsic is
     world -> camera. `vbg.tw` and `vbg.color` are updated in place; the
     returned grid carries the new table."""
-    if vbg.block_resolution != 16:
-        raise NotImplementedError(
-            "only 16^3 blocks are ported; the non-16^3 fuse kernel is queued"
-        )
-    from open3d_tpu_torch.ops.kernels import integrate2 as k1
-
     C = vbg.capacity
     table, slot, ok = hm.activate(vbg.table, block_keys)
-    rows = torch.where(ok, slot, C).to(torch.int32)
+    rows = torch.where(ok, slot, C).to(torch.int32).contiguous()
     if depth_scale != 1.0:
         depth = depth / depth_scale
-    d21, rgb24 = k1.prepare_frame(depth, color if vbg.has_color else None, depth_max)
-    if vbg.has_color and rgb24 is None:
-        rgb24 = torch.zeros_like(d21)
+    vbg = dataclasses.replace(vbg, table=table)
+
+    if vbg.block_resolution != 16:
+        # other resolutions: per-voxel samples in plain torch, then the fuse
+        # kernel (K3) over the work list's payload rows
+        from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+        tsdf_new, wn, cnew = _new_voxel_values(
+            vbg, block_keys, depth, color, intrinsic, extrinsic, depth_max, 1.0, ok
+        )
+        k3.fuse_blocks(vbg.tw_flat, vbg.color_flat if cnew is not None else None,
+                       rows, tsdf_new, wn, cnew, weight_max)
+        # restore the dump-row invariant (the kernel skips row C; the plain
+        # version writes it back unchanged)
+        vbg.tw[C] = 0
+        if cnew is not None:
+            vbg.color[C] = 0
+        return vbg
+
     coords = hm.unpack_coords(block_keys).contiguous()
-    k1.integrate_blocks_v2(
-        vbg.tw, vbg.color, rows.contiguous(), coords, d21, rgb24, intrinsic,
-        extrinsic, vbg.voxel_size, vbg.sdf_trunc, depth_max, weight_max,
-    )
+    if os.environ.get("O3DTPU_INTEGRATE_V1"):
+        # the V1 kernel (K4): bf16 hi+lo depth and bf16 colour planes
+        from open3d_tpu_torch.ops.kernels import integrate as k4
+
+        planes = k4.prepare_planes(depth, color, vbg.has_color)
+        k4.integrate_blocks(
+            vbg.tw, vbg.color, rows, coords, planes, intrinsic, extrinsic,
+            vbg.voxel_size, vbg.sdf_trunc, depth_max, weight_max,
+        )
+    else:
+        from open3d_tpu_torch.ops.kernels import integrate2 as k1
+
+        d21, rgb24 = k1.prepare_frame(depth, color if vbg.has_color else None, depth_max)
+        if vbg.has_color and rgb24 is None:
+            rgb24 = torch.zeros_like(d21)
+        k1.integrate_blocks_v2(
+            vbg.tw, vbg.color, rows, coords, d21, rgb24, intrinsic,
+            extrinsic, vbg.voxel_size, vbg.sdf_trunc, depth_max, weight_max,
+        )
     vbg.tw[C] = 0
     if vbg.color is not None:
         vbg.color[C] = 0
-    return dataclasses.replace(vbg, table=table)
+    return vbg
 
 
 # ---------------------------------------------------------------------------
@@ -284,3 +368,76 @@ def raycast(
     vertex = torch.where(mask[..., None], p_hit, 0.0)
     color_img = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
     return RaycastResult(depth=depth_img, vertex=vertex, color=color_img, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Extraction
+# ---------------------------------------------------------------------------
+
+
+def extract_point_cloud(
+    vbg: VoxelBlockGrid,
+    point_capacity: int = 262144,
+    weight_threshold: float = 3.0,
+) -> PointCloud:
+    """Zero-crossing surface points with forward-difference gradient
+    normals (and colours), compacted into a cloud of `point_capacity`. A
+    voxel's +x/+y/+z neighbour comes from its own block, or from the face
+    of the neighbouring block found in the hash table."""
+    B = vbg.block_resolution
+    C = vbg.capacity
+    dev = vbg.device
+    occ = hm.occupied_mask(vbg.table)
+    coords = hm.unpack_coords(vbg.table)  # (C, 3), garbage where unoccupied
+    local = _voxel_local_coords(B, dev)  # (B^3, 3)
+    tw2d = vbg.tw_flat
+    own = torch.arange(C, device=dev)
+
+    def neighbor_vals(axis):
+        e = torch.zeros(3, dtype=torch.int32, device=dev)
+        e[axis] = 1
+        nb_slot, nb_found = hm.find(vbg.table, hm.pack_coords(coords + e))
+        nb_rows = torch.where(nb_found & occ, nb_slot, C).to(torch.int64)
+        nxt = local + e
+        inside = nxt[:, axis] < B
+        wrapped = torch.where(inside[:, None], nxt, nxt - e * B)
+        flat = (wrapped[:, 0] + wrapped[:, 1] * B + wrapped[:, 2] * B * B).to(torch.int64)
+        t_in, w_in = unpack_tw(tw2d[own[:, None], flat[None, :]])
+        t_out, w_out = unpack_tw(tw2d[nb_rows[:, None], flat[None, :]])
+        return (torch.where(inside[None, :], t_in, t_out),
+                torch.where(inside[None, :], w_in, w_out))
+
+    t0, w0 = unpack_tw(tw2d[:C])
+    txs, wxs = zip(*(neighbor_vals(axis) for axis in range(3)))
+    # gradient for normals from forward differences
+    grad = torch.stack([txs[0] - t0, txs[1] - t0, txs[2] - t0], dim=-1)
+    gnorm = grad / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True), min=1e-9)
+
+    base_w_ok = occ[:, None] & (w0 >= weight_threshold)
+    origin = coords.to(torch.float32) * vbg.block_size
+    vpos = origin[:, None, :] + local.to(torch.float32)[None, :, :] * vbg.voxel_size
+
+    points, masks = [], []
+    for axis in range(3):
+        tn, wn = txs[axis], wxs[axis]
+        cross = base_w_ok & (wn >= weight_threshold) & (t0 * tn < 0)
+        denom = t0 - tn  # sign-preserving: clamping with max() breaks t0 < 0
+        frac = torch.clamp(t0 / torch.where(torch.abs(denom) > 1e-9, denom, 1e-9), 0.0, 1.0)
+        e = torch.zeros(3, dtype=torch.float32, device=dev)
+        e[axis] = vbg.voxel_size
+        points.append((vpos + frac[..., None] * e).reshape(-1, 3))
+        masks.append(cross.reshape(-1))
+
+    pts = torch.cat(points)
+    nrm = gnorm.reshape(-1, 3).repeat(3, 1)
+    msk = torch.cat(masks)
+
+    idx, count = compact_indices(msk, point_capacity)
+    idx = idx.to(torch.int64)
+    sel_mask = torch.arange(point_capacity, device=dev) < count
+    out_pos = torch.where(sel_mask[:, None], pts[idx], FAR_COORD)
+    attrs = {"normals": torch.where(sel_mask[:, None], nrm[idx], 0.0)}
+    if vbg.has_color:
+        cc = unpack_rgb(vbg.color_flat[:C]).reshape(-1, 3).repeat(3, 1)
+        attrs["colors"] = torch.where(sel_mask[:, None], cc[idx], 0.0)
+    return PointCloud(positions=out_pos, mask=sel_mask, attrs=attrs)

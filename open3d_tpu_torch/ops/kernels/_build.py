@@ -128,6 +128,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,  # stream
     ]
     lib.o3dt_march_tiles.restype = I
+    lib.o3dt_fuse_blocks.argtypes = [
+        P, P, P, P, P, P,  # tw, color, rows, tsdf_new, wn, cnew
+        I, I, I, F,  # M, C, B3, weight_max
+        P,  # stream
+    ]
+    lib.o3dt_fuse_blocks.restype = I
+    lib.o3dt_integrate_blocks_v1.argtypes = [
+        P, P, P, P, I, I,  # tw, color, slots, coords, M, C
+        P, I, I,  # planes (5, H, W) bf16, H, W
+        P,  # params (R row-major 9, t 3) on the device
+        F, F, F, F,  # fx fy cx cy
+        F, F, F, F, F, F,  # voxel, block, -trunc, 1/trunc, depth_max, weight_max
+        P,  # stream
+    ]
+    lib.o3dt_integrate_blocks_v1.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

@@ -62,24 +62,15 @@ def _params(extrinsic: torch.Tensor, device) -> torch.Tensor:
     return torch.cat([E[:3, :3].reshape(-1), E[:3, 3]]).contiguous()
 
 
-def integrate_blocks_plain(
-    tw: torch.Tensor,
-    color: Optional[torch.Tensor],
-    slots: torch.Tensor,
-    coords: torch.Tensor,
-    d21: torch.Tensor,
-    rgb24: Optional[torch.Tensor],
-    intrinsic: PinholeCameraIntrinsic,
-    extrinsic: torch.Tensor,
-    voxel_size: float,
-    sdf_trunc: float,
-    depth_max: float,
-    weight_max: float = 10000.0,
-) -> None:
-    """The kernel's function in plain PyTorch, vectorised over (M, 4096).
-    Updates the rows of `tw` (and `color`) named by `slots` in place;
-    entries whose slot is the dump row C are skipped. The element-wise op
-    order is the JAX kernel's."""
+def _integrate_plain(tw, color, slots, coords, intrinsic, extrinsic, voxel_size, sdf_trunc,
+                     depth_max, weight_max, H, W, depth_at, color_at, v1=False) -> None:
+    """The integrate kernels' function in plain PyTorch, vectorised over
+    (M, 4096), in the JAX kernels' element-wise order, for either sample
+    format: depth_at(lin, inb) gives the depth sample, color_at(lin, inb)
+    the (r, g, b) sample in [0, 1]. `v1` takes the V1 kernel's projection
+    (both product pairs fused) and passes the new tsdf through its bf16
+    hi + lo relayout split. Updates the rows of `tw` (and `color`) named by
+    `slots` in place; entries whose slot is the dump row C are skipped."""
     C = tw.shape[0] - 1
     tw2 = tw.view(C + 1, _B3)
     col2 = color.view(C + 1, _B3) if color is not None else None
@@ -100,17 +91,20 @@ def integrate_blocks_plain(
     pwx = fma(lx.expand(M, _B3), voxel_size, bxf)
     pwy = fma(ly.expand(M, _B3), voxel_size, byf)
     pwz = fma(lz.expand(M, _B3), voxel_size, bzf)
-    pcx = fma(R00, pwx, R01 * pwy) + R02 * pwz + tX
-    pcy = fma(R10, pwx, R11 * pwy) + R12 * pwz + tY
-    pcz = fma(R20, pwx, R21 * pwy) + R22 * pwz + tZ
+    if v1:
+        pcx = fma(R02, pwz, fma(R00, pwx, R01 * pwy)) + tX
+        pcy = fma(R12, pwz, fma(R10, pwx, R11 * pwy)) + tY
+        pcz = fma(R22, pwz, fma(R20, pwx, R21 * pwy)) + tZ
+    else:
+        pcx = fma(R00, pwx, R01 * pwy) + R02 * pwz + tX
+        pcy = fma(R10, pwx, R11 * pwy) + R12 * pwz + tY
+        pcz = fma(R20, pwx, R21 * pwy) + R22 * pwz + tZ
     zc = torch.clamp(pcz, min=1e-6)
     ui = torch.round(fma(pcx / zc, intrinsic.fx, intrinsic.cx)).to(torch.int64)
     vi = torch.round(fma(pcy / zc, intrinsic.fy, intrinsic.cy)).to(torch.int64)
-    H, W = d21.shape
     inb = (pcz > 1e-4) & (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
     lin = torch.where(inb, vi * W + ui, 0)
-    dq = torch.where(inb, d21.reshape(-1)[lin], 0)
-    d = dq.to(torch.float32) * (depth_max / _D21)
+    d = depth_at(lin, inb)
     d_ok = (d > 0) & (d < depth_max)
     sdf = d - pcz
     keep = d_ok & (sdf >= -sdf_trunc)
@@ -124,6 +118,8 @@ def integrate_blocks_plain(
     inv = 1.0 / torch.clamp(w_sum, min=1e-6)
     upd = w_n > 0
     t_new = torch.where(keep, tsdf_new, 0.0)
+    if v1:
+        t_new = _hi_lo(t_new)
     t2 = torch.where(upd, fma(old_t, old_w, t_new * w_n) * inv, old_t)
     w2 = torch.clamp(w_sum, max=weight_max)
     tq = torch.round(torch.clamp(t2, -1.0, 1.0) * _TSDF_SCALE).to(torch.int32)
@@ -134,14 +130,11 @@ def integrate_blocks_plain(
     tw2[C] = 0
     if col2 is None:
         return
-    cq = torch.where(inb, rgb24.reshape(-1)[lin], 0) if rgb24 is not None else torch.zeros_like(dq)
     oldc = col2[rows]
     ro = ((oldc >> 21) & 0x7FF).to(torch.float32) * (1.0 / 2047.0)
     go = ((oldc >> 10) & 0x7FF).to(torch.float32) * (1.0 / 2047.0)
     bo = (oldc & 0x3FF).to(torch.float32) * (1.0 / 1023.0)
-    rn = torch.where(keep, ((cq >> 16) & 0xFF).to(torch.float32) * (1.0 / 255.0), 0.0)
-    gn = torch.where(keep, ((cq >> 8) & 0xFF).to(torch.float32) * (1.0 / 255.0), 0.0)
-    bn = torch.where(keep, (cq & 0xFF).to(torch.float32) * (1.0 / 255.0), 0.0)
+    rn, gn, bn = (torch.where(keep, c, 0.0) for c in color_at(lin, inb))
     r2 = torch.where(upd, fma(ro, old_w, rn * w_n) * inv, ro)
     g2 = torch.where(upd, fma(go, old_w, gn * w_n) * inv, go)
     b2 = torch.where(upd, fma(bo, old_w, bn * w_n) * inv, bo)
@@ -151,6 +144,46 @@ def integrate_blocks_plain(
     new_c = (ri << 21) | (gi << 10) | bi
     col2.index_copy_(0, rows, torch.where(live[:, None], new_c, oldc))
     col2[C] = 0
+
+
+def _hi_lo(x: torch.Tensor) -> torch.Tensor:
+    """x through the V1 relayout's bf16 hi + lo split: f32(hi) + f32(lo)."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    lo = (x - hi).to(torch.bfloat16).to(torch.float32)
+    return hi + lo
+
+
+def integrate_blocks_plain(
+    tw: torch.Tensor,
+    color: Optional[torch.Tensor],
+    slots: torch.Tensor,
+    coords: torch.Tensor,
+    d21: torch.Tensor,
+    rgb24: Optional[torch.Tensor],
+    intrinsic: PinholeCameraIntrinsic,
+    extrinsic: torch.Tensor,
+    voxel_size: float,
+    sdf_trunc: float,
+    depth_max: float,
+    weight_max: float = 10000.0,
+) -> None:
+    """The kernel's function in plain PyTorch on the d21 and rgb24 images
+    (see _integrate_plain)."""
+    d21f = d21.reshape(-1)
+
+    def depth_at(lin, inb):
+        return torch.where(inb, d21f[lin], 0).to(torch.float32) * (depth_max / _D21)
+
+    def color_at(lin, inb):
+        cq = torch.where(inb, rgb24.reshape(-1)[lin], 0) if rgb24 is not None else \
+            torch.zeros_like(lin, dtype=torch.int32)
+        return (((cq >> 16) & 0xFF).to(torch.float32) * (1.0 / 255.0),
+                ((cq >> 8) & 0xFF).to(torch.float32) * (1.0 / 255.0),
+                (cq & 0xFF).to(torch.float32) * (1.0 / 255.0))
+
+    H, W = d21.shape
+    _integrate_plain(tw, color, slots, coords, intrinsic, extrinsic, voxel_size, sdf_trunc,
+                     depth_max, weight_max, H, W, depth_at, color_at)
 
 
 def integrate_blocks_v2(

@@ -69,6 +69,58 @@ def test_march_kernel_matches_plain(scene):
     assert float((dk > 0).float().mean()) > 0.5
 
 
+def test_integrate_v1_kernel_matches_plain(scene):
+    from open3d_tpu_torch.core import hashmap as hm
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+    from open3d_tpu_torch.ops.kernels import integrate as k4
+
+    g, d, c, e, intr = scene
+    tw, col = g.tw.clone(), g.color.clone()
+    tw_ref, col_ref = g.tw.clone(), g.color.clone()
+    for i in range(2):
+        keys, _ = vbg.compute_unique_block_coordinates(g, d[i], intr, e[i], frame_block_capacity=256)
+        table, slot, ok = hm.activate(g.table, keys)
+        rows = torch.where(ok, slot, g.capacity).to(torch.int32)
+        planes = k4.prepare_planes(d[i], c[i], True)
+        args = (rows, hm.unpack_coords(keys), planes, intr, e[i], g.voxel_size, g.sdf_trunc, 3.0)
+        n = k4.integrate_blocks.launches
+        k4.integrate_blocks(tw, col, *args)
+        assert k4.integrate_blocks.launches == n + 1
+        k4.integrate_blocks_plain_v1(tw_ref, col_ref, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(tw, tw_ref) and torch.equal(col, col_ref)
+    assert int((tw.view(g.capacity + 1, -1) & 0xFFFF).sum()) > 0
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fuse_kernel_matches_plain(cuda, with_color):
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    gen = torch.Generator().manual_seed(1)
+    C, M, B3 = 64, 32, 512
+    tw = torch.randint(-2**31, 2**31 - 1, (C + 1, B3), generator=gen, dtype=torch.int32)
+    col = torch.randint(0, 2**31 - 1, (C + 1, B3), generator=gen, dtype=torch.int32)
+    rows = torch.randperm(C, generator=gen)[:M].to(torch.int32)
+    rows[::5] = C
+    tsdf_new = torch.rand((M, B3), generator=gen) * 2 - 1
+    wn = (torch.rand((M, B3), generator=gen) > 0.3).float()
+    cnew = torch.randint(0, 2**31 - 1, (M, B3), generator=gen, dtype=torch.int32)
+    a = [x.to(cuda) for x in (tw, col, rows, tsdf_new, wn, cnew)]
+    b = [x.clone() for x in a]
+    if not with_color:
+        a[1] = a[5] = b[1] = b[5] = None
+    n = k3.fuse_blocks.launches
+    k3.fuse_blocks(*a)
+    assert k3.fuse_blocks.launches == n + 1
+    k3.fuse_blocks_plain(*b)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    if with_color:
+        assert torch.equal(a[1], b[1])
+    live = rows[rows < C].long()
+    assert bool((a[0].cpu()[live] != tw[live]).any())
+
+
 def test_wrapper_raises_on_mixed_devices(scene):
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
 

@@ -108,7 +108,9 @@ def test_point_to_plane_odometry(pair):
     rj = jodo.rgbd_odometry_multi_scale(
         JRGBD(c0, d0), JRGBD(c1, d1), JIntr(*INTR), method=jodo.POINT_TO_PLANE
     )
-    rt = todo.rgbd_odometry_multi_scale(TRGBD(_t(c0), _t(d0)), TRGBD(_t(c1), _t(d1)), TIntr(*INTR))
+    rt = todo.rgbd_odometry_multi_scale(
+        TRGBD(_t(c0), _t(d0)), TRGBD(_t(c1), _t(d1)), TIntr(*INTR), method=todo.POINT_TO_PLANE
+    )
     np.testing.assert_allclose(np.asarray(rj.transformation), rt.transformation.numpy(), atol=1e-3)
     assert abs(float(rj.fitness) - float(rt.fitness)) < 1e-3
     for rot, trans, fit in [
@@ -120,6 +122,13 @@ def test_point_to_plane_odometry(pair):
 
 @pytest.mark.parametrize("method", [todo.INTENSITY, todo.HYBRID])
 def test_unported_odometry_methods_raise(pair, method):
-    d0 = _t(pair[0])
-    with pytest.raises(NotImplementedError):
-        todo.rgbd_odometry_multi_scale(TRGBD(d0, d0), TRGBD(d0, d0), TIntr(*INTR), method=method)
+    """INTENSITY and HYBRID are ported now (tests/test_torch_odometry_hybrid.py
+    holds them against JAX): each runs on a frame pair, and a method name
+    that neither package knows raises."""
+    d0, c0 = _t(pair[0]), _t(pair[1])
+    r = todo.rgbd_odometry_multi_scale(TRGBD(c0, d0), TRGBD(c0, d0), TIntr(*INTR), method=method)
+    assert float(r.fitness) > 0.5
+    with pytest.raises(ValueError):
+        todo.rgbd_odometry_multi_scale(
+            TRGBD(c0, d0), TRGBD(c0, d0), TIntr(*INTR), method=method + "_unported"
+        )

@@ -18,8 +18,10 @@ from open3d_tpu_torch.core import platform
 from open3d_tpu_torch.geometry import voxel_block_grid as tvbg
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.ops.kernels import _build
+from open3d_tpu_torch.ops.kernels import integrate as k4
 from open3d_tpu_torch.ops.kernels import integrate2 as k1
 from open3d_tpu_torch.ops.kernels import raycast as k2
+from open3d_tpu_torch.ops.kernels import tsdf as k3
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(open3d_tpu_torch.__file__).resolve().parent
@@ -158,5 +160,88 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_kernel_sources_present():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["common.cu", "integrate2.cu", "raycast.cu"]
+    assert names == ["common.cu", "integrate2.cu", "raycast.cu", "tsdf.cu"]
     assert len(_build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "ops" / "kernels").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_wrappers_catch_no_build_or_launch_error(path):
+    """No kernel wrapper wraps a build or a launch in try/except (a CUDA
+    tensor launches the kernel or raises; nothing falls back)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)], path
+
+
+def _k3_inputs(C=8, M=4, B=8):
+    B3 = B**3
+    tw = torch.zeros((C + 1, B3), dtype=torch.int32)
+    color = torch.zeros_like(tw)
+    rows = torch.tensor([0, 1, C, 2], dtype=torch.int32)[:M]
+    tsdf_new = torch.full((M, B3), 0.5)
+    wn = torch.ones((M, B3))
+    cnew = torch.full((M, B3), (512 << 21) | (1024 << 10) | 512, dtype=torch.int32)
+    return [tw, color, rows, tsdf_new, wn, cnew]
+
+
+@pytest.mark.parametrize("arg,bad", [
+    (0, lambda t: t.to(torch.int64)),
+    (0, lambda t: t.reshape(t.shape[0], 8, 64)),  # not (C+1, B^3)
+    (1, lambda t: t[:, :-1]),  # wrong shape
+    (2, lambda t: t.to(torch.int64)),
+    (2, lambda t: torch.stack([t, t], 1)[:, 0]),  # non-contiguous
+    (3, lambda t: t.double()),
+    (4, lambda t: t[:-1]),  # wrong shape
+    (5, lambda t: t.to(torch.float32)),
+    (5, lambda t: None),  # colour grid without colour samples
+    (3, lambda t: t.to("meta")),  # another device
+])
+def test_fuse_wrapper_refuses_bad_inputs(arg, bad):
+    args = _k3_inputs()
+    args[arg] = bad(args[arg])
+    with pytest.raises((TypeError, ValueError)):
+        k3.fuse_blocks(*args)
+
+
+def test_fuse_wrapper_accepts_good_inputs():
+    for with_color in (True, False):
+        args = _k3_inputs()
+        if not with_color:
+            args[1] = args[5] = None
+        k3.fuse_blocks(*args)  # CPU tensors: the plain version runs
+        t, w = tvbg.unpack_tw(args[0][:3])
+        assert float(w.min()) == 1.0 and float((t - 0.5).abs().max()) < 1e-4
+        assert int(args[0][-1].abs().sum()) == 0  # the dump row is skipped
+
+
+def _k4_inputs(C=8, M=4, H=12, W=16):
+    tw = torch.zeros((C + 1, 32, 128), dtype=torch.int32)
+    color = torch.zeros_like(tw)
+    slots = torch.tensor([0, 1, C, 2], dtype=torch.int32)[:M]
+    coords = torch.zeros((M, 3), dtype=torch.int32)
+    planes = k4.prepare_planes(torch.ones((H, W)), torch.full((H, W, 3), 0.5), True)
+    intr = PinholeCameraIntrinsic(W, H, 10.0, 10.0, W / 2, H / 2)
+    return [tw, color, slots, coords, planes, intr, torch.eye(4), 0.01, 0.04, 3.0]
+
+
+@pytest.mark.parametrize("arg,bad", [
+    (0, lambda t: t.to(torch.int64)),
+    (1, lambda t: t.reshape(t.shape[0], -1)),  # not (C+1, 32, 128)
+    (2, lambda t: t.to(torch.int64)),
+    (3, lambda t: t.t().contiguous().t()),  # non-contiguous
+    (4, lambda t: t.to(torch.float32)),
+    (4, lambda t: t[:4]),  # wrong shape
+    (4, lambda t: t.to("meta")),  # another device
+])
+def test_integrate_v1_wrapper_refuses_bad_inputs(arg, bad):
+    args = _k4_inputs()
+    args[arg] = bad(args[arg])
+    with pytest.raises((TypeError, ValueError)):
+        k4.integrate_blocks(*args)
+
+
+def test_integrate_v1_wrapper_accepts_good_inputs():
+    args = _k4_inputs()
+    assert args[4].dtype == torch.bfloat16 and tuple(args[4].shape) == (5, 12, 16)
+    k4.integrate_blocks(*args)  # CPU tensors: the plain version runs
+    assert int(args[0][-1].abs().sum()) == 0
