@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths on one NVIDIA card: the
-dense-SLAM frame step and stage 1 of the offline reconstruction system
-(make_fragments).
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card: the dense-SLAM
+frame step, stage 1 of the offline reconstruction system (make_fragments),
+and the primitive, gather and march probes that scripts/ ran on the TPU.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -31,11 +31,17 @@ Phases:
      fragment cloud against the scene's SDF, the PLY and JSON read back;
   9. the fragment grid rebuilt from those poses: the row fuse K3 against
      its plain version at frame 10's full-width work list, with and
-     without colour; per-stage times of the fragment path.
+     without colour; per-stage times of the fragment path;
+ 10. the probes' path, the three kernels ported from scripts/: the gather
+     P2 at the script's three table sizes, the staged-block march P3 at
+     T = 1200 tiles over a 40960-block table, and the 17 primitive probes
+     P1 at 1000 and 9000 repeats, counted like phase 5; each held against
+     its plain version on those outputs, then timed beside its plain
+     version and a PyTorch call that computes the same function.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
-float32 operations over the card's float32 rate, both counted from this
-run's inputs. The last line is {"ok": true, "device": {...}}. Any failed
+float32 operations over the card's float32 rate (bfloat16 products over the
+tensor cores' rate), both counted from this run's inputs. The last line is {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result. It
 imports only torch and open3d_tpu_torch.
 """
@@ -56,6 +62,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, same sheet
+H100_BF16_PER_S = 989e12  # bfloat16 on the tensor cores, dense, same sheet
 # float32 arithmetic (an fma counts two; min, max and compares not counted):
 K1_OPS_VOXEL = 86  # integrate2.cu: 56 for tsdf and weight, 30 for colour
 # The march's function needs, on the work this run's data asks for:
@@ -80,6 +87,8 @@ K2_TOL = dict(hit_agree=0.999, median_dd=1e-4, frac_over_voxel=1e-3,
 # the outer limit
 K34_TOL = dict(weight_mismatch=0.0, max_abs_dtsdf=0.0, max_abs_dcolor=0.0)
 POSE_TOL = 0.05  # m and rad, tests/test_slam.py's gate
+P3_TOL = dict(hit_agree=1.0, max_abs_dz=1e-6)  # the staged-block march, target bit parity
+PROBE_KERNELS = ("micro_gather", "micro_raymarch", "micro_primitives")
 
 
 def log(msg: str) -> None:
@@ -104,28 +113,6 @@ def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `reps` runs, by CUDA events. A spin
-    kernel of about 50 ms runs first, so the host has queued every launch
-    before the first one starts: the events then time the device's work,
-    not the host's enqueue rate (a wrapper's Python checks take longer
-    than a small kernel)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def event_ms(fn):
@@ -247,6 +234,7 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     check(launches["fuse_blocks"] == n_frames, f"K3 once per integrated frame {launches}")
     check(launches["integrate_blocks_v2"] == 0 and launches["integrate_blocks_v1"] == 0,
           f"the 8^3 fragment grid takes K3 only {launches}")
+    check(all(launches[n] == 0 for n in PROBE_KERNELS), f"make_fragments runs no probe {launches}")
 
     json_path = os.path.join(out_dir, "fragments", "fragment_000.json")
     check(paths == [os.path.join(out_dir, "fragments", "fragment_000.ply")]
@@ -327,6 +315,8 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
     import numpy as np
     import torch
 
+    from open3d_tpu_torch.ops.kernels._timing import device_ms
+
     C = grid.capacity
     extr = torch.as_tensor(np.linalg.inv(pose), dtype=torch.float32).to(grid.device)
     keys, touched = vbg_mod.compute_unique_block_coordinates(
@@ -353,9 +343,9 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
         check(par["rows_changed"] > live.numel() // 2, f"K3 updated the live rows {par}")
         out[name] = par
         if with_color:
-            out["ms"] = cuda_ms(lambda: k3.fuse_blocks(tw_a, col_a, rows, tsdf_new, wn, c_new),
+            out["ms"] = device_ms(lambda: k3.fuse_blocks(tw_a, col_a, rows, tsdf_new, wn, c_new),
                                 reps=20)
-            out["plain_ms"] = cuda_ms(
+            out["plain_ms"] = device_ms(
                 lambda: k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, c_new), reps=3)
     B3 = grid.tw_flat.shape[1]
     out["bytes"] = live.numel() * B3 * K3_BYTES_VOXEL + rows.numel() * 4
@@ -365,6 +355,165 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
     log(f"[9] K3 {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound "
         f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bytes']} B, {out['ops']} flop)")
     return out
+
+
+def probe_library_call(probe, inputs):
+    """One PyTorch call that computes one instance of a P1 probe's
+    operation (without the loop index): its yardstick. Index tensors are
+    widened to int64 here, outside the returned call."""
+    import torch
+
+    x = inputs[0]
+    if probe.kind == "mul":
+        return lambda: torch.mul(x, 2.0)
+    if probe.kind == "reshape":
+        return lambda: torch.add(x.view(probe.out_shape), 1.0)
+    if probe.kind == "transpose":
+        return lambda: x.t().contiguous()
+    if probe.kind == "bcast":
+        return lambda: x[:, :, None].expand(probe.out_shape).contiguous()
+    if probe.family == "gather" or probe.kind == "maskmul":
+        idx = inputs[1].long()
+        return lambda: torch.gather(x, 1, idx)
+    if probe.kind == "segment":
+        v = x.view(x.shape[0], -1, 128)
+        return lambda: torch.sum(v, dim=2)
+    if probe.kind == "sublane":
+        v = x.view(16, 128, x.shape[1])
+        return lambda: torch.sum(v, dim=1)
+    if probe.kind == "onehot":
+        lanes = torch.arange(probe.out_shape[1], device=x.device, dtype=torch.int32)[None, :]
+        return lambda: torch.eq(lanes, x)
+    y = inputs[1]  # the products; bfloat16 in, bfloat16 out (float32 sums inside)
+    return lambda: torch.matmul(x, y)
+
+
+def micro_phase(dev, zero_counts, launch_counts) -> list:
+    """Phase 10: the probes' path. Drives P2, P3 and P1 at the scripts' own
+    sizes with the counts set to 0 just before and read just after, holds
+    those outputs against the plain versions, then times each kernel, its
+    plain version and its PyTorch yardstick. Returns the three kernel
+    entries of the summary line."""
+    import torch
+
+    from open3d_tpu_torch.ops.kernels import micro_gather as p2
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+    from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
+    from open3d_tpu_torch.ops.kernels._timing import device_ms
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p2_in = [(R, s, *p2.make_inputs(R, p2.n_indices(s), gen, dev)) for R, s in p2.CONFIGS]
+    tw, rows = p3.make_inputs(gen, dev)
+    p1_in = [(p, p1.make_inputs(p, gen, dev)) for p in p1.PROBES]
+    torch.cuda.synchronize()
+    zero_counts()
+    p2_out = [p2.gather(table, idx) for _, _, table, idx in p2_in]
+    p3_out = p3.march(rows, tw)
+    p1_out = [(p1.run_probe(p, ins, p1.ITERS_LO), p1.run_probe(p, ins, p1.ITERS_HI))
+              for p, ins in p1_in]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"[10] probes' path: launches {launches}")
+    check(all(launches[n] >= 1 for n in PROBE_KERNELS), f"P1-P3 ran {launches}")
+    check(all(c == 0 for n, c in launches.items() if n not in PROBE_KERNELS),
+          f"the probes take no kernel of the engine {launches}")
+
+    # ---- P2 at the three configurations: bit parity, times summed over them
+    configs = []
+    for (R, s_chunk, table, idx), out in zip(p2_in, p2_out):
+        ref = p2.gather_plain(table, idx)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), f"P2 R={R} chunk={s_chunk} bit parity (max |d| {err})")
+        n = idx.numel()
+        b_ms, b_by = bound(p2.bytes_moved(R, n), 0)
+        idx64 = idx.long()  # torch.take takes int64 indices only
+        row = {"R": R, "s_chunk": s_chunk, "indices": n, "max_abs_err": err,
+               "ms": device_ms(lambda: p2.gather(table, idx), reps=20),
+               "plain_ms": device_ms(lambda: p2.gather_plain(table, idx), reps=5),
+               "library_ms": device_ms(lambda: torch.take(table, idx64), reps=20),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[10] P2 {row}")
+        configs.append(row)
+    del p2_in, p2_out
+
+    def total(rows_, key):
+        return sum(r[key] for r in rows_)
+
+    p2_entry = {
+        "name": "micro_gather", "route": "cuda", "source": "open3d_tpu_torch/csrc/micro_gather.cu",
+        "replaces": "scripts/micro_onehot_gather.py:49", "launches": launches["micro_gather"],
+        "max_abs_err": max(r["max_abs_err"] for r in configs),
+        "ms": total(configs, "ms"), "kernel_ms": total(configs, "ms"),
+        "plain_ms": total(configs, "plain_ms"), "bound_ms": total(configs, "bound_ms"),
+        "bound_by": "bytes", "library_ms": total(configs, "library_ms"),
+        "library": "torch.take on int64 indices", "times": "sums over the three configurations",
+        "parity": {"bit_equal": True}, "tolerance": {"max_abs_err": 0.0}, "configs": configs,
+    }
+
+    # ---- P3 at the script's size
+    ref = p3.march_plain(rows, tw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(p3_out).all()) and tuple(p3_out.shape) == (p3.T, 1, p3.NR),
+          "P3 depths finite, (T, 1, 256)")
+    par = p3.parity(p3_out, ref)
+    check(par["hit_agree"] >= P3_TOL["hit_agree"] and par["max_abs_dz"] <= P3_TOL["max_abs_dz"]
+          and par["hit_frac"] > 0.5, f"P3 against its plain version {par}")
+    per_sm, sms = p3.occupancy()
+    n_tiles = rows.shape[0]
+    b_ms, b_by = bound(p3.bytes_moved(n_tiles), p3.ops(n_tiles))
+    p3_entry = {
+        "name": "micro_raymarch", "route": "cuda", "source": "open3d_tpu_torch/csrc/micro_raymarch.cu",
+        "replaces": "scripts/micro_raymarch_kernel.py:87", "launches": launches["micro_raymarch"],
+        "max_abs_err": par["max_abs_dz"],
+        "ms": device_ms(lambda: p3.march(rows, tw), reps=20),
+        "plain_ms": device_ms(lambda: p3.march_plain(rows, tw), reps=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no PyTorch call marches rays through staged blocks",
+        "parity": par, "tolerance": P3_TOL,
+        "occupancy": {"ctas_per_sm": per_sm, "sms": sms,
+                      "waves": -(-n_tiles // (per_sm * sms))},
+    }
+    p3_entry["kernel_ms"] = p3_entry["ms"]
+    log(f"[10] P3 {p3_entry} ({p3.bytes_moved(n_tiles)} B, {p3.ops(n_tiles)} flop)")
+    del tw, rows, p3_out, ref
+    torch.cuda.empty_cache()
+
+    # ---- P1: each probe at iters = 1000 against its plain version, then ns
+    # an instance (the slope between 1000 and 9000), beside the plain
+    # version's and one PyTorch call's time an instance
+    probes = []
+    for (p, ins), (out, _) in zip(p1_in, p1_out):
+        ref = p1.probe_plain(p, ins, p1.ITERS_LO)
+        torch.cuda.synchronize()
+        rel = p1.rel_err(out, ref)
+        check(rel <= p1.tolerance(p), f"P1 {p.name}: {rel} > {p1.tolerance(p)}")
+        peak = H100_BF16_PER_S if p.family == "mma_bf16" else H100_F32_PER_S
+        row = {"name": p.name, "family": p.family, "rel_err": rel, "tolerance": p1.tolerance(p),
+               "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "ns": p1.slope_ns(p, ins),
+               "plain_ns": device_ms(lambda: p1.probe_plain(p, ins, p1.ITERS_LO), reps=1,
+                                   warmup=0) / p1.ITERS_LO * 1e6,
+               "library_ns": device_ms(probe_library_call(p, ins), reps=100) * 1e6,
+               "bound_ns": p1.instance_ops(p) / peak * 1e9, "bound_by": "operations"}
+        log(f"[10] P1 {row}")
+        probes.append(row)
+    p1_entry = {
+        "name": "micro_primitives", "route": "cuda",
+        "source": "open3d_tpu_torch/csrc/micro_primitives.cu", "replaces": "scripts/perf_micro.py:39",
+        "launches": launches["micro_primitives"],
+        "max_abs_err": max(r["max_abs_err"] for r in probes),
+        "ms": total(probes, "ns") / 1e6, "plain_ms": total(probes, "plain_ns") / 1e6,
+        "bound_ms": total(probes, "bound_ns") / 1e6, "bound_by": "operations",
+        "library_ms": total(probes, "library_ns") / 1e6,
+        "times": "one instance of each of the 17 probes, summed",
+        "parity": {r["name"]: r["rel_err"] for r in probes},
+        "tolerance": {r["name"]: r["tolerance"] for r in probes}, "probes": probes,
+    }
+    p1_entry["kernel_ms"] = p1_entry["ms"]
+    log(f"[10] probes' phase {time.perf_counter() - t_start:.1f} s")
+    return [p1_entry, p2_entry, p3_entry]
 
 
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
@@ -444,11 +593,17 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import integrate as k4
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
+    from open3d_tpu_torch.ops.kernels import micro_gather as p2
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+    from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
     from open3d_tpu_torch.ops.kernels import raycast as k2
     from open3d_tpu_torch.ops.kernels import tsdf as k3
+    from open3d_tpu_torch.ops.kernels._timing import device_ms
 
     wrappers = {"integrate_blocks_v2": k1.integrate_blocks_v2, "march_tiles": k2.march_tiles,
-                "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks}
+                "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks,
+                "micro_primitives": p1.run_probe, "micro_gather": p2.gather,
+                "micro_raymarch": p3.march}
 
     def launch_counts() -> dict:
         return {n: f.launches for n, f in wrappers.items()}
@@ -530,8 +685,8 @@ def main(argv=None) -> int:
         k1_args = args
         n_live = live.numel()
     rows, coords, d21, rgb24 = k1_args[:4]
-    k1_ms = cuda_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
-    k1_plain_ms = cuda_ms(lambda: k1.integrate_blocks_plain(ref.tw, ref.color, *k1_args), reps=3)
+    k1_ms = device_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
+    k1_plain_ms = device_ms(lambda: k1.integrate_blocks_plain(ref.tw, ref.color, *k1_args), reps=3)
     k1_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
     k1_ops = n_live * 4096 * K1_OPS_VOXEL
     k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
@@ -557,8 +712,8 @@ def main(argv=None) -> int:
     check(k4_par["rows_changed"] > live.numel() // 2, f"K4 updated the live rows {k4_par}")
     check(int(tw_a[C].abs().sum()) == 0 and int(col_a[C].abs().sum()) == 0,
           "K4 dump row stays zero")
-    k4_ms = cuda_ms(lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20)
-    k4_plain_ms = cuda_ms(lambda: k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args), reps=3)
+    k4_ms = device_ms(lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20)
+    k4_plain_ms = device_ms(lambda: k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args), reps=3)
     k4_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + planes.numel() * 2
     k4_ops = n_live * 4096 * K4_OPS_VOXEL
     k4_bound_ms, k4_bound_by = bound(k4_bytes, k4_ops)
@@ -597,9 +752,9 @@ def main(argv=None) -> int:
     check(k2_par["frac_over_1e4"] < K2_TOL["frac_over_1e4"], f"K2 depths off by > 0.1 mm {k2_par}")
     check(k2_par["max_abs_err"] <= K2_TOL["max_abs_err"], f"K2 max depth error {k2_par}")
     check(k2_par["hit_frac"] > 0.5, f"K2 hits most of the frame {k2_par}")
-    k2_ms = cuda_ms(lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max),
+    k2_ms = device_ms(lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max),
                     reps=20)
-    k2_plain_ms = cuda_ms(
+    k2_plain_ms = device_ms(
         lambda: k2.march_tiles_plain(grid.tw, rows_k2, lists.coords, lists.nk, lists.n_extra,
                                      intr, E, grid.voxel_size, cfg.depth_min, cfg.depth_max),
         reps=3)
@@ -651,6 +806,7 @@ def main(argv=None) -> int:
           "K1 and K2 ran on every frame")
     check(launches["fuse_blocks"] == 0 and launches["integrate_blocks_v1"] == 0,
           f"the 16^3 default path takes K1 only {launches}")
+    check(all(launches[n] == 0 for n in PROBE_KERNELS), f"the SLAM slice runs no probe {launches}")
     truth = depths[-1]
     check(bool(torch.isfinite(md).all()) and tuple(md.shape) == tuple(truth.shape),
           "raycast depth finite, (H, W)")
@@ -691,6 +847,7 @@ def main(argv=None) -> int:
     check(max(trans_v1) < POSE_TOL and max(rot_v1) < POSE_TOL, f"V1 pose error vs truth {v1_res}")
     check(all(f["integrate_blocks_v1"] >= 1 and f["integrate_blocks_v2"] == 0
               for f in per_frame_v1), f"K4 in place of K1 on every frame {per_frame_v1}")
+    check(all(launches_v1[n] == 0 for n in PROBE_KERNELS), f"the V1 run takes no probe {launches_v1}")
 
     # ---- 6. per-stage times (after the warm-up above), peak memory
     torch.cuda.reset_peak_memory_stats()
@@ -734,6 +891,10 @@ def main(argv=None) -> int:
         fr = fragment_phases(dev, intr, 40, 1.2, out_dir, zero_counts, launch_counts,
                              profile_dir=opts.profile)
     k3_out = fr["k3"]
+    torch.cuda.empty_cache()
+
+    # ---- 10. the probes' path: P1-P3 at the scripts' own sizes
+    probe_kernels = micro_phase(dev, zero_counts, launch_counts)
 
     kernels = [
         {
@@ -776,6 +937,7 @@ def main(argv=None) -> int:
             "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
             "parity": k4_par, "tolerance": K34_TOL,
         },
+        *probe_kernels,
     ]
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
                                    "slice": slice_res, "v1_slice": v1_res,

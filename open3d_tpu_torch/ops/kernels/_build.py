@@ -143,6 +143,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,  # stream
     ]
     lib.o3dt_integrate_blocks_v1.restype = I
+    lib.o3dt_micro_gather.argtypes = [P, P, P, I, ctypes.c_longlong, P]  # table, idx, out, R, n
+    lib.o3dt_micro_gather.restype = I
+    lib.o3dt_micro_raymarch.argtypes = [P, P, P, I, I, P]  # tw, rows, out, T, C
+    lib.o3dt_micro_raymarch.restype = I
+    lib.o3dt_micro_raymarch_occupancy.argtypes = [P, P]  # int* CTAs a multiprocessor, int* SMs
+    lib.o3dt_micro_raymarch_occupancy.restype = I
+    lib.o3dt_probe_elementwise.argtypes = [P, P, I, I, I, I, I, P]  # x, out, kind, rows, cols, n_out, iters
+    lib.o3dt_probe_elementwise.restype = I
+    lib.o3dt_probe_gather.argtypes = [P, P, P, I, I, I, P]  # x, idx, out, rows, width, iters
+    lib.o3dt_probe_gather.restype = I
+    lib.o3dt_probe_reduce.argtypes = [P, P, P, I, I, I, I, P]  # x, idx, out, kind, rows, cols, iters
+    lib.o3dt_probe_reduce.restype = I
+    lib.o3dt_probe_onehot.argtypes = [P, P, I, I, I, P]  # idx, out, rows, cols, iters
+    lib.o3dt_probe_onehot.restype = I
+    for name in ("o3dt_probe_mma_bf16", "o3dt_probe_ffma"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, I, I, I, I, P]  # a, b, out, M, K, N, iters
+        fn.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

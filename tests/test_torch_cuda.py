@@ -5,7 +5,9 @@ with a card and no JAX run them with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Bars: the kernels fuse multiply-adds at the same places as their plain
-versions and round alike, so on the same card they agree exactly.
+versions and round alike, so on the same card they agree exactly; the
+primitive probes' products, which cuBLAS sums in another order, agree
+within micro_primitives.tolerance.
 """
 
 import pytest
@@ -131,3 +133,55 @@ def test_wrapper_raises_on_mixed_devices(scene):
     with pytest.raises(ValueError):
         k1.integrate_blocks_v2(g.tw, g.color, slots, coords, d21, rgb24, intr, e[0],
                                g.voxel_size, g.sdf_trunc, 3.0)
+
+
+def test_micro_gather_kernel_matches_plain(cuda):
+    from open3d_tpu_torch.ops.kernels import micro_gather as p2
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for R, n in [(32, 4099), (320, 1 << 16)]:  # a tail past the 16-byte steps; the 160 KB table
+        table, idx = p2.make_inputs(R, n, gen, cuda)
+        count = p2.gather.launches
+        out = p2.gather(table, idx)
+        assert p2.gather.launches == count + 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, p2.gather_plain(table, idx))
+
+
+def test_micro_raymarch_kernel_matches_plain(cuda):
+    from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
+
+    tw, rows = p3.make_inputs(torch.Generator(device=cuda).manual_seed(3), cuda, T=300, C=512)
+    count = p3.march.launches
+    out = p3.march(rows, tw)
+    assert p3.march.launches == count + 1
+    torch.cuda.synchronize()
+    ref = p3.march_plain(rows, tw)
+    assert torch.equal(out, ref)
+    assert p3.parity(out, ref)["hit_frac"] > 0.5
+
+
+@pytest.mark.parametrize("name", [
+    "mul (2048,128) f32", "take_along_axis (2048,128)", "take_along 1col (2048,128)",
+    "maskmul+lanereduce (2048,128)", "segreduce 5x(2048,128)->(2048,5)",
+    "reshape (2048,1)->(16,128)", "reshape3d+subreduce (2048,128)",
+    "onehot build (2048,128) bf16", "matmul bf16 (2048,128)@(128,128)",
+    "matmul bf16 (2048,128)@(128,640)", "matmul f32 (16,2048)@(2048,128)",
+    "matmul f32 (16,2048)@(2048,640)", "transpose (128,2048)", "transpose (2048,8)",
+    "bcast lane->sub (32,128)->(32,128,128)",
+])
+def test_micro_primitives_kernel_matches_plain(cuda, name):
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    probe = p1.BY_NAME[name]
+    ins = p1.make_inputs(probe, torch.Generator(device=cuda).manual_seed(4), cuda)
+    count = p1.run_probe.launches
+    out = p1.run_probe(probe, ins, 50)
+    assert p1.run_probe.launches == count + 1
+    torch.cuda.synchronize()
+    ref = p1.probe_plain(probe, ins, 50)
+    if p1.tolerance(probe) == 0.0:
+        assert torch.equal(out, ref)
+    else:
+        assert p1.rel_err(out, ref) <= p1.tolerance(probe)

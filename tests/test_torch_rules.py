@@ -20,6 +20,9 @@ from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels import integrate as k4
 from open3d_tpu_torch.ops.kernels import integrate2 as k1
+from open3d_tpu_torch.ops.kernels import micro_gather as p2
+from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
 from open3d_tpu_torch.ops.kernels import raycast as k2
 from open3d_tpu_torch.ops.kernels import tsdf as k3
 
@@ -160,7 +163,8 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_kernel_sources_present():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["common.cu", "integrate2.cu", "raycast.cu", "tsdf.cu"]
+    assert names == ["common.cu", "integrate2.cu", "micro_gather.cu", "micro_primitives.cu",
+                     "micro_raymarch.cu", "raycast.cu", "tsdf.cu"]
     assert len(_build.source_hash()) == 16
 
 
@@ -245,3 +249,109 @@ def test_integrate_v1_wrapper_accepts_good_inputs():
     assert args[4].dtype == torch.bfloat16 and tuple(args[4].shape) == (5, 12, 16)
     k4.integrate_blocks(*args)  # CPU tensors: the plain version runs
     assert int(args[0][-1].abs().sum()) == 0
+
+
+def _p2_inputs(R=32, n=64):
+    table = torch.randn((R, 128))
+    idx = torch.randint(0, R * 128, (n, 1), dtype=torch.int32)
+    return [table, idx]
+
+
+@pytest.mark.parametrize("arg,bad", [
+    (0, lambda t: t.double()),
+    (0, lambda t: t[:, :64].contiguous()),  # not (R, 128)
+    (0, lambda t: t.t().contiguous().t()),  # non-contiguous
+    (1, lambda t: t.to(torch.int64)),
+    (1, lambda t: t.reshape(-1)),  # not (n, 1)
+    (1, lambda t: torch.cat([t, t], 1)[:, :1]),  # non-contiguous
+    (1, lambda t: t.to("meta")),  # another device
+])
+def test_micro_gather_wrapper_refuses_bad_inputs(arg, bad):
+    args = _p2_inputs()
+    args[arg] = bad(args[arg])
+    with pytest.raises((TypeError, ValueError)):
+        p2.gather(*args)
+
+
+def test_micro_gather_wrapper_accepts_good_inputs():
+    table, idx = _p2_inputs()
+    out = p2.gather(table, idx)  # CPU tensors: the plain version runs
+    assert torch.equal(out[:, 0], table.reshape(-1)[idx[:, 0].long()])
+
+
+def _p3_inputs(T=2, C=8):
+    return list(p3.make_inputs(torch.Generator().manual_seed(0), "cpu", T=T, C=C)[::-1])
+
+
+@pytest.mark.parametrize("arg,bad", [
+    (0, lambda t: t.to(torch.int64)),
+    (0, lambda t: t[:, :7].contiguous()),  # not (T, 8)
+    (0, lambda t: t.t().contiguous().t()),  # non-contiguous
+    (1, lambda t: t.reshape(t.shape[0], -1)),  # not (C, 32, 128)
+    (1, lambda t: t.float()),
+    (1, lambda t: t.to("meta")),  # another device
+])
+def test_micro_raymarch_wrapper_refuses_bad_inputs(arg, bad):
+    args = _p3_inputs()
+    args[arg] = bad(args[arg])
+    with pytest.raises((TypeError, ValueError)):
+        p3.march(*args)
+
+
+def test_micro_raymarch_wrapper_accepts_good_inputs():
+    rows, tw = _p3_inputs()
+    out = p3.march(rows, tw)  # CPU tensors: the plain version runs
+    assert tuple(out.shape) == (2, 1, 256) and bool(torch.isfinite(out).all())
+
+
+def _p1_case(name="take_along 1col (2048,128)"):
+    probe = p1.BY_NAME[name]
+    return probe, p1.make_inputs(probe, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("bad", [
+    lambda p, ins: (p, [ins[0].double(), ins[1]], 2),
+    lambda p, ins: (p, [ins[0], ins[1].to(torch.int64)], 2),
+    lambda p, ins: (p, [ins[0][:1024].contiguous(), ins[1]], 2),  # wrong shape
+    lambda p, ins: (p, [ins[0].t().contiguous().t(), ins[1]], 2),  # non-contiguous
+    lambda p, ins: (p, [ins[0]], 2),  # an input missing
+    lambda p, ins: (p, [ins[0], ins[1].to("meta")], 2),  # another device
+    lambda p, ins: (p, ins, -1),  # negative repeat count
+    lambda p, ins: (p1.Probe("x", "gather", "col", p.inputs, p.out_shape, p.out_dtype), ins, 2),
+])
+def test_micro_primitives_wrapper_refuses_bad_inputs(bad):
+    probe, ins = _p1_case()
+    with pytest.raises((TypeError, ValueError)):
+        p1.run_probe(*bad(probe, ins))
+
+
+def test_micro_primitives_wrapper_accepts_good_inputs():
+    probe, ins = _p1_case()
+    out = p1.run_probe(probe, ins, 2)  # CPU tensors: the plain version runs
+    x, idx = ins
+    g = x.gather(1, idx.long())
+    expect = (g + 0.0) + (g + 1.0)  # iterations 0 and 1 summed from zero
+    assert torch.equal(out, expect)
+
+
+@pytest.mark.parametrize("mod", [p1, p2, p3], ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_probe_entry_points_raise_without_cuda(monkeypatch, mod):
+    """python -m open3d_tpu_torch.ops.kernels.<probe> measures the card or
+    nothing: without one its main() raises before it makes any input."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        mod.main()
+
+
+def test_probe_wrappers_refuse_indices_out_of_range():
+    table, idx = _p2_inputs()
+    with pytest.raises(ValueError, match="index"):
+        p2.gather(table, torch.full_like(idx, 32 * 128))
+    with pytest.raises(ValueError, match="index"):
+        p2.gather(table, torch.full_like(idx, -1))
+    rows, tw = _p3_inputs()
+    with pytest.raises(ValueError, match="row"):
+        p3.march(torch.full_like(rows, tw.shape[0]), tw)
+    probe, (x, idx1) = _p1_case()
+    with pytest.raises(ValueError, match="index"):
+        p1.run_probe(probe, [x, torch.full_like(idx1, 128)], 1)
