@@ -128,6 +128,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,  # stream
     ]
     lib.o3dt_march_tiles.restype = I
+    lib.o3dt_march_occupancy.argtypes = [I, P, P]  # M, int* CTAs a multiprocessor, int* SMs
+    lib.o3dt_march_occupancy.restype = I
     lib.o3dt_fuse_blocks.argtypes = [
         P, P, P, P, P, P,  # tw, color, rows, tsdf_new, wn, cnew
         I, I, I, F,  # M, C, B3, weight_max

@@ -26,3 +26,10 @@ def check_tensor(name: str, t: torch.Tensor, dtype, device, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16) -> None:
+    """Raise unless `t` starts on an `nbytes` boundary (a kernel that moves
+    its rows as 16-byte words needs it; a fresh allocation always is)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected data aligned to {nbytes} bytes")

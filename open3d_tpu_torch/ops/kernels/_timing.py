@@ -31,3 +31,31 @@ def device_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
+
+
+def cold_ms(fn, reps: int, flush_bytes: int = 4 * L2_BYTES) -> float:
+    """Mean device time of fn() with a cold L2 cache: before each run a
+    scratch buffer four times the L2 is written and a second one read (so
+    the cache holds none of fn's data and no dirty lines to write back),
+    and each run is timed alone by its own pair of CUDA events. A spin
+    kernel runs first, as in device_ms, so the events time the device."""
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
+    clean = torch.zeros_like(scratch)
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    events = []
+    for i in range(reps):
+        scratch.fill_(i)
+        clean.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps

@@ -10,7 +10,10 @@ Replaces: open3d_tpu/ops/pallas/integrate.py:_integrate_kernel (via
 integrate_blocks), with its planes from prepare_planes.
 Bound: bytes, as K1: each touched block reads and writes its 16 KiB tw and
 colour rows; the kernel reads each once and gathers five 2-byte plane
-samples a voxel from the frame.
+samples a voxel from the frame. It is K1's template, so K1's design holds:
+a thread issues the five plane gathers of its 4 voxels with its two
+16-byte row loads in one burst before it computes (the rows must be
+16-byte aligned; the wrapper checks).
 
 What it computes is the V1 kernel's function on a block that its slab
 window covers: K1's projection, keep rule and running mean, with two
@@ -47,6 +50,7 @@ from typing import Optional
 import torch
 
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels.integrate2 import _integrate_plain, _params
 
@@ -125,6 +129,9 @@ def integrate_blocks(
     _check("slots", slots, torch.int32, dev, (M,))
     _check("coords", coords, torch.int32, dev, (M, 3))
     _check("planes", planes, torch.bfloat16, dev, (N_PLANES, H, W))
+    check_aligned("tw", tw)
+    if color is not None:
+        check_aligned("color", color)
 
     if dev.type == "cpu":
         integrate_blocks_plain_v1(

@@ -9,7 +9,14 @@ the kernel or raises.
 Replaces: open3d_tpu/ops/pallas/integrate2.py:_integrate_kernel_v2.
 Bound: bytes. A touched block reads and writes its 16 KiB tw row and its
 16 KiB colour row; the kernel reads each row once, writes it once, and
-gathers depth and colour from the frame images directly.
+gathers depth and colour from the frame images directly. At the SLAM
+workload (about 580 live blocks a frame) the rows are too few to fill the
+card one load at a time, so the kernel is bound by memory latency. Its
+design: four CTAs an entry, and a thread owns one 16-byte group (4
+voxels) of the block's rows; it projects its voxels, issues every frame
+gather together with its two 16-byte row loads, and only then computes
+and writes back, so a voxel costs one memory round trip, not two. The
+rows must be 16-byte aligned (the wrapper checks).
 
 Depth is quantised as the JAX kernel quantises it, d21 =
 floor(clip(d, 0, depth_max) * (2^21 - 1) / depth_max), and decoded as
@@ -33,6 +40,7 @@ from typing import Optional
 import torch
 
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
 
@@ -219,6 +227,9 @@ def integrate_blocks_v2(
         _check("rgb24", rgb24, torch.int32, dev, (H, W))
     if color is not None and rgb24 is None:
         raise ValueError("color grid given without an rgb24 frame")
+    check_aligned("tw", tw)
+    if color is not None:
+        check_aligned("color", color)
 
     if dev.type == "cpu":
         integrate_blocks_plain(

@@ -11,14 +11,26 @@ CUDA tensors and runs `march_tiles_plain` for CPU tensors; a CUDA tensor
 never falls back.
 
 Replaces: open3d_tpu/ops/pallas/raycast.py:_march_kernel.
-Bound: the larger of bytes and float32 operations. The march reads the
-16 KiB tw row of every candidate block some ray samples (mostly from L2,
-as neighbouring tiles share blocks) and writes 4 bytes a ray; its
+Bound: the larger of bytes and float32 operations. The march's function
+reads only the payload words its samples touch before the tile's break:
+the distinct 32-byte sectors of those samples (`stats["sectors_sampled"]`;
+most are served by L1 and L2, as neighbouring rays and tiles share
+voxels), the candidate entries walked, and 4 bytes a ray written. Its
 operations are the ray directions, the chords of every (tile, block)
 step, the samples of every ray that meets a block and the interpolation
-of every crossing. chip_smoke.py counts both on the bench frame. One CTA
-marches one tile: its 256 threads stage each candidate row in shared
-memory once and sample it from there.
+of every crossing. chip_smoke.py counts both on the bench frame.
+
+Design: one CTA marches one tile, one thread a ray, with no barrier per
+block. The tile's candidate list is staged in shared memory once; each
+thread walks it alone, issuing the loads of the next block its ray meets
+before it consumes the current one, and loads only the words it samples.
+The plain version's break ("every ray has a hit") falls after k*, the
+largest first-hit candidate of the tile's rays: a ray reports its first
+hit and walks on, keeping one speculative lowering of its hit past the
+largest first hit reported so far (put back if it lies past k*); rays
+that stop short of k* walk on to it after the one barrier. So the result
+is the plain version's, bit for bit. Divisions by a per-ray value are
+float64 products with its reciprocal, which round to the same float32.
 
 Rounding: multiply-adds are fused (fmaf in the kernel, `_plain.fma` in the
 plain version) exactly where XLA's CPU backend fuses them in the
@@ -193,10 +205,13 @@ def march_tiles_plain(
     Returns the (H, W) hit depth, 0 for a miss. If `stats` is a dict, it
     receives the work the function needs on this data, which the kernel's
     bound counts: "rows_marched", the distinct payload rows that some ray
-    samples; "pairs_visited", the (tile, block) steps taken (each computes
-    the chords of all the tile's rays); "ray_blocks", the (ray, block)
-    chords that were sampled; "crossings", the samples that cross the
-    surface (each interpolates a hit)."""
+    samples; "sectors_sampled", the distinct 32-byte sectors (8 payload
+    words) that the in-block samples of rays meeting a block read;
+    "pairs_visited", the (tile, block) steps taken (each computes the
+    chords of all the tile's rays); "ray_blocks", the (ray, block) chords
+    that were sampled; "crossings", the samples that cross the surface
+    (each interpolates a hit); "tile_steps", a (T,) tensor of the
+    candidates each tile walks before its break."""
     dev = tw.device
     C1 = tw.shape[0]
     H, W = intrinsic.height, intrinsic.width
@@ -229,8 +244,9 @@ def march_tiles_plain(
     k_max = int(nk_tot.max()) if T > 0 else 0
     TK = T * K
     mio = torch.arange(M, dtype=torch.float32, device=dev)
-    marched = []
+    marched, sectors = [], []
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    tile_steps = torch.zeros(T, dtype=torch.int64, device=dev)
 
     def axis_rng(o, d, b):
         # b: (T, 1) block coordinate as float; the chord [b bs, b bs + bs]
@@ -297,12 +313,19 @@ def march_tiles_plain(
         zhit = torch.minimum(zhit, cand.amin(-1))
         if stats is not None:
             counts += torch.stack([going.sum(), has.sum(), cross.sum()])
+            tile_steps += going
+            read = has[..., None] & inb
+            sec = row[:, None, None] * (B * B * B // 8) + flat // 8
+            sectors.append(torch.unique(sec[read]))
         pv = torch.where(has, torch.where(ok[..., M - 1], vals[..., M - 1], 1.0), pv)
         pz = torch.where(has, torch.maximum(zm[..., M - 1], pz), pz)
 
     if stats is not None:
         rows_m = torch.cat(marched) if marched else torch.zeros(0, dtype=torch.int64, device=dev)
         stats["rows_marched"] = int(torch.unique(rows_m).numel())
+        secs = torch.cat(sectors) if sectors else torch.zeros(0, dtype=torch.int64, device=dev)
+        stats["sectors_sampled"] = int(torch.unique(secs).numel())
+        stats["tile_steps"] = tile_steps
         stats.update(zip(("pairs_visited", "ray_blocks", "crossings"), counts.tolist()))
     zhit = torch.where(zhit < _BIG, zhit, 0.0)
     img = zhit.reshape(TH, TW, tile, tile).permute(0, 2, 1, 3).reshape(TH * tile, TW * tile)
@@ -372,6 +395,18 @@ def march_tiles(
 
 
 march_tiles.launches = 0
+
+
+def occupancy(M: int = 6) -> tuple:
+    """(CTAs of the march kernel for M samples a multiprocessor holds, the
+    card's multiprocessors)."""
+    import ctypes
+
+    from open3d_tpu_torch.ops.kernels import _build
+
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.load().o3dt_march_occupancy(M, ctypes.byref(per_sm), ctypes.byref(sms)))
+    return per_sm.value, sms.value
 
 
 def raycast_depth(

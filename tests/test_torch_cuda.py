@@ -71,6 +71,61 @@ def test_march_kernel_matches_plain(scene):
     assert float((dk > 0).float().mean()) > 0.5
 
 
+def test_march_kernel_matches_plain_with_missing_rays(scene):
+    """The camera turned half away from the fused surface: many rays never
+    hit, so their tiles walk every candidate before the break."""
+    import math
+
+    from open3d_tpu_torch.ops.kernels import raycast as k2
+
+    g, d, c, e, intr = scene
+    a = 0.6
+    turn = torch.tensor([[math.cos(a), 0, math.sin(a), 0], [0, 1, 0, 0],
+                         [-math.sin(a), 0, math.cos(a), 0], [0, 0, 0, 1]], dtype=torch.float32)
+    E = turn.to(e.device) @ e[1]
+    lists = k2.build_tile_lists(g, intr, E, 0.1, 3.0)
+    rows = torch.where(lists.rows >= 0, lists.rows, g.capacity).to(torch.int32)
+    dk = k2.march_tiles(g, lists, intr, E, 0.1, 3.0)
+    stats = {}
+    dp = k2.march_tiles_plain(g.tw, rows, lists.coords, lists.nk, lists.n_extra, intr, E,
+                              g.voxel_size, 0.1, 3.0, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    hit = float((dk > 0).float().mean())
+    assert 0.05 < hit < 0.95, hit
+    nk_tot = lists.nk.long() + int(lists.n_extra[0])
+    assert bool(((stats["tile_steps"] == nk_tot) & (nk_tot > 1)).any())
+
+
+def test_integrate_kernel_mostly_dump_rows(scene):
+    """A work list of which nine entries in ten are the dump row C: only the
+    live rows change, and the dump row stays zero."""
+    from open3d_tpu_torch.core import hashmap as hm
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+    from open3d_tpu_torch.ops.kernels import integrate2 as k1
+
+    g, d, c, e, intr = scene
+    keys, _ = vbg.compute_unique_block_coordinates(g, d[0], intr, e[0], frame_block_capacity=256)
+    table, slot, ok = hm.activate(g.table, keys)
+    rows = torch.where(ok, slot, g.capacity).to(torch.int32)
+    rows[torch.arange(rows.numel(), device=rows.device) % 10 != 0] = g.capacity
+    live = rows[rows < g.capacity].long()
+    assert live.numel() > 0 and live.numel() * 5 < rows.numel()
+    tw, col = g.tw.clone(), g.color.clone()
+    tw_ref, col_ref = g.tw.clone(), g.color.clone()
+    d21, rgb24 = k1.prepare_frame(d[0], c[0], 3.0)
+    args = (rows, hm.unpack_coords(keys), d21, rgb24, intr, e[0], g.voxel_size, g.sdf_trunc, 3.0)
+    k1.integrate_blocks_v2(tw, col, *args)
+    k1.integrate_blocks_plain(tw_ref, col_ref, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(tw, tw_ref) and torch.equal(col, col_ref)
+    flat, before = tw.view(g.capacity + 1, -1), g.tw.view(g.capacity + 1, -1)
+    changed = (flat != before).any(-1)
+    assert bool(changed[live].all())
+    assert int(changed.sum()) == live.numel()
+    assert int(flat[g.capacity].abs().sum()) == 0
+
+
 def test_integrate_v1_kernel_matches_plain(scene):
     from open3d_tpu_torch.core import hashmap as hm
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg

@@ -126,6 +126,25 @@ def test_integrate_wrapper_refuses_bad_inputs(arg, bad):
         k1.integrate_blocks_v2(*args)
 
 
+def _misaligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """t's values, contiguous and of t's shape, starting 4 bytes past a
+    16-byte boundary."""
+    buf = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("arg", [0, 1])
+def test_integrate_wrappers_refuse_misaligned_rows(arg):
+    """K1 and K4 move payload rows as 16-byte words, so tw and colour must
+    start on a 16-byte boundary."""
+    for inputs, wrapper in ((_k1_inputs(), k1.integrate_blocks_v2), (_k4_inputs(), k4.integrate_blocks)):
+        inputs[arg] = _misaligned_rows(inputs[arg])
+        with pytest.raises(ValueError, match="aligned"):
+            wrapper(*inputs)
+
+
 def test_integrate_wrapper_accepts_good_inputs():
     args = _k1_inputs()
     k1.integrate_blocks_v2(*args)  # CPU tensors: the plain version runs
