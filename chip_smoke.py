@@ -16,7 +16,9 @@ Phases:
   4. the raycast march kernel K2 against its plain version on that grid,
      timed warm and cold, with the work its data asks for (sectors
      sampled, candidates walked a tile), its occupancy, and the time of
-     its slowest tile marched alone (--kernels-only stops here);
+     its slowest tile marched alone (--kernels-only then times K3 on a
+     synthetic fragment work list and P2 at the script's three sizes, and
+     stops);
   5. the SLAM slice: slam_step over the 8-frame bench orbit at that
      configuration, pose-gated on frames 0-3 (the reference loses track
      from frame 4 too), then over the first half of that orbit, held on
@@ -36,13 +38,16 @@ Phases:
      fragment cloud against the scene's SDF, the PLY and JSON read back;
   9. the fragment grid rebuilt from those poses: the row fuse K3 against
      its plain version at frame 10's full-width work list, with and
-     without colour; per-stage times of the fragment path;
+     without colour, timed warm and cold, with its launch floor (that list
+     with every entry the dump row) and occupancy; per-stage times of the
+     fragment path;
  10. the probes' path, the three kernels ported from scripts/: the gather
      P2 at the script's three table sizes, the staged-block march P3 at
      T = 1200 tiles over a 40960-block table, and the 17 primitive probes
      P1 at 1000 and 9000 repeats, counted like phase 5; each held against
      its plain version on those outputs, then timed beside its plain
-     version and a PyTorch call that computes the same function.
+     version and a PyTorch call that computes the same function (P2 with
+     its occupancy at each size).
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -349,8 +354,7 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
         check(par["rows_changed"] > live.numel() // 2, f"K3 updated the live rows {par}")
         out[name] = par
         if with_color:
-            out["ms"] = device_ms(lambda: k3.fuse_blocks(tw_a, col_a, rows, tsdf_new, wn, c_new),
-                                reps=20)
+            out.update(k3_times(k3, tw_a, col_a, rows, tsdf_new, wn, c_new, C))
             out["plain_ms"] = device_ms(
                 lambda: k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, c_new), reps=3)
     B3 = grid.tw_flat.shape[1]
@@ -358,9 +362,52 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
     out["ops"] = live.numel() * B3 * K3_OPS_VOXEL
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
     out["max_abs_err"] = max(out["colour"]["max_abs_err"], out["no_colour"]["max_abs_err"])
-    log(f"[9] K3 {out['ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound "
-        f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bytes']} B, {out['ops']} flop)")
+    out["occupancy"] = {"colour": k3.occupancy(True, B3), "no_colour": k3.occupancy(False, B3)}
+    log(f"[9] K3 {out['ms']:.4f} ms warm, {out['cold_ms']:.4f} ms cold, launch floor "
+        f"{out['floor_ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+        f"by {out['bound_by']} ({out['bytes']} B, {out['ops']} flop); {out['occupancy']}")
     return out
+
+
+def k3_times(k3, tw, col, rows, tsdf_new, wn, cnew, C: int) -> dict:
+    """K3 warm and cold on this work list, and its launch floor: the same
+    list with every entry the dump row C, warm (what this design takes for
+    a list with nothing to fuse)."""
+    import torch
+
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms
+
+    dump = torch.full_like(rows, C)
+    return {"ms": device_ms(lambda: k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew), reps=20),
+            "cold_ms": cold_ms(lambda: k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew), reps=20),
+            "floor_ms": device_ms(lambda: k3.fuse_blocks(tw, col, dump, tsdf_new, wn, cnew),
+                                  reps=20)}
+
+
+def kernels_only_k3_p2(dev) -> None:
+    """--kernels-only: K3 on a synthetic fragment-sized work list (4096
+    entries, the first 395 live, an 8192-block 8^3 grid) and P2 at the
+    script's three configurations, each against its plain version, timed,
+    with its occupancy."""
+    import torch
+
+    from open3d_tpu_torch.ops.kernels import micro_gather as p2
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tw, col, rows, tsdf_new, wn, cnew = k3.synthetic_work_list(gen, dev)
+    C = tw.shape[0] - 1
+    tw_b, col_b = tw.clone(), col.clone()
+    k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew)
+    k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, cnew)
+    torch.cuda.synchronize()
+    check(torch.equal(tw[:C], tw_b[:C]) and torch.equal(col[:C], col_b[:C]), "K3 bit parity")
+    log(f"[k] K3 synthetic {k3_times(k3, tw, col, rows, tsdf_new, wn, cnew, C)} "
+        f"{k3.occupancy(True, tw.shape[1])}")
+    del tw, col, tw_b, col_b, tsdf_new, wn, cnew
+    for R, s_chunk in p2.CONFIGS:
+        inputs = p2.make_inputs(R, p2.n_indices(s_chunk), gen, dev)
+        log(f"[k] P2 {p2_row(p2, R, s_chunk, *inputs)}")
 
 
 def probe_library_call(probe, inputs):
@@ -392,6 +439,30 @@ def probe_library_call(probe, inputs):
         return lambda: torch.eq(lanes, x)
     y = inputs[1]  # the products; bfloat16 in, bfloat16 out (float32 sums inside)
     return lambda: torch.matmul(x, y)
+
+
+def p2_row(p2, R: int, s_chunk: int, table, idx, out=None) -> dict:
+    """P2 at one configuration: `out` (the kernel's output, computed here
+    when not given) bit-equal to the plain version; kernel, plain and
+    torch.take times, the bound, and the kernel's occupancy."""
+    import torch
+
+    from open3d_tpu_torch.ops.kernels._timing import device_ms
+
+    if out is None:
+        out = p2.gather(table, idx)
+    ref = p2.gather_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"P2 R={R} chunk={s_chunk} bit parity (max |d| {err})")
+    n = idx.numel()
+    b_ms, b_by = bound(p2.bytes_moved(R, n), 0)
+    idx64 = idx.long()  # torch.take takes int64 indices only
+    return {"R": R, "s_chunk": s_chunk, "indices": n, "max_abs_err": err,
+            "ms": device_ms(lambda: p2.gather(table, idx), reps=20),
+            "plain_ms": device_ms(lambda: p2.gather_plain(table, idx), reps=5),
+            "library_ms": device_ms(lambda: torch.take(table, idx64), reps=20),
+            "bound_ms": b_ms, "bound_by": b_by, "occupancy": p2.occupancy(R)}
 
 
 def micro_phase(dev, zero_counts, launch_counts) -> list:
@@ -428,18 +499,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     # ---- P2 at the three configurations: bit parity, times summed over them
     configs = []
     for (R, s_chunk, table, idx), out in zip(p2_in, p2_out):
-        ref = p2.gather_plain(table, idx)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(torch.equal(out, ref), f"P2 R={R} chunk={s_chunk} bit parity (max |d| {err})")
-        n = idx.numel()
-        b_ms, b_by = bound(p2.bytes_moved(R, n), 0)
-        idx64 = idx.long()  # torch.take takes int64 indices only
-        row = {"R": R, "s_chunk": s_chunk, "indices": n, "max_abs_err": err,
-               "ms": device_ms(lambda: p2.gather(table, idx), reps=20),
-               "plain_ms": device_ms(lambda: p2.gather_plain(table, idx), reps=5),
-               "library_ms": device_ms(lambda: torch.take(table, idx64), reps=20),
-               "bound_ms": b_ms, "bound_by": b_by}
+        row = p2_row(p2, R, s_chunk, table, idx, out)
         log(f"[10] P2 {row}")
         configs.append(row)
     del p2_in, p2_out
@@ -576,7 +636,8 @@ def main(argv=None) -> int:
                     help="also profile the steady frame step, writing a trace into DIR")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 4 (build, K1, K4 and K2 against their plain "
-                         "versions, timed), printing no result line")
+                         "versions, timed), then K3 on a synthetic fragment work list and "
+                         "P2 at the script's three sizes, printing no result line")
     opts = ap.parse_args(argv)
     import torch
 
@@ -682,12 +743,15 @@ def main(argv=None) -> int:
         n_live = live.numel()
     rows, coords, d21, rgb24 = k1_args[:4]
     k1_ms = device_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
+    # the first cold_ms call of a process reads high: logged, not counted
+    k1_cold_first = cold_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
     k1_cold_ms = cold_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
     k1_plain_ms = device_ms(lambda: k1.integrate_blocks_plain(ref.tw, ref.color, *k1_args), reps=3)
     k1_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
     k1_ops = n_live * 4096 * K1_OPS_VOXEL
     k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
-    log(f"[3] K1 {k1_ms:.4f} ms warm, {k1_cold_ms:.4f} ms cold, plain {k1_plain_ms:.3f} ms, "
+    log(f"[3] K1 {k1_ms:.4f} ms warm, {k1_cold_ms:.4f} ms cold (the process's first cold "
+        f"reading {k1_cold_first:.4f} ms), plain {k1_plain_ms:.3f} ms, "
         f"bound {k1_bound_ms:.4f} ms by {k1_bound_by} ({k1_bytes} B, {k1_ops} flop)")
 
     # ---- 3b. K4 against its plain version: frame 1's work list again, on
@@ -795,6 +859,7 @@ def main(argv=None) -> int:
     del grid, ref, lists
     torch.cuda.empty_cache()
     if opts.kernels_only:
+        kernels_only_k3_p2(dev)
         return 0
 
     # ---- 5. the slice: slam_step over 8 frames. bench.py's orbit (span 0.8)
@@ -951,9 +1016,11 @@ def main(argv=None) -> int:
             "replaces": "open3d_tpu/ops/pallas/tsdf.py:56",
             "launches": fr["launches"]["fuse_blocks"],
             "max_abs_err": k3_out["max_abs_err"],
-            "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "plain_ms": k3_out["plain_ms"],
+            "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "cold_ms": k3_out["cold_ms"],
+            "floor_ms": k3_out["floor_ms"], "plain_ms": k3_out["plain_ms"],
             "bound_ms": k3_out["bound_ms"], "bound_by": k3_out["bound_by"], "library_ms": None,
             "parity": {k: k3_out[k] for k in ("colour", "no_colour")}, "tolerance": BIT_TOL,
+            "occupancy": k3_out["occupancy"],
         },
         {
             "name": "integrate_blocks_v1", "route": "cuda",

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from open3d_tpu_torch.core.platform import default_device
+
 KEY_WORDS = 2
 
 _COORD_BITS = 21
@@ -33,14 +35,16 @@ _TOMB_W1 = 2
 
 
 def make_table(capacity: int, device=None) -> torch.Tensor:
-    """Fresh table of `capacity` empty slots."""
-    return torch.zeros((capacity, 2), dtype=torch.int32, device=device)
+    """Fresh table of `capacity` empty slots, on the card unless `device`
+    names another (default_device)."""
+    return torch.zeros((capacity, 2), dtype=torch.int32, device=default_device(device))
 
 
 def empty_keys(shape, device=None) -> torch.Tensor:
+    """(*shape, 2) invalid keys, on the card unless `device` names another."""
     if isinstance(shape, int):
         shape = (shape,)
-    return torch.zeros(tuple(shape) + (2,), dtype=torch.int32, device=device)
+    return torch.zeros(tuple(shape) + (2,), dtype=torch.int32, device=default_device(device))
 
 
 def is_valid(keys: torch.Tensor) -> torch.Tensor:

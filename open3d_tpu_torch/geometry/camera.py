@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from open3d_tpu_torch.core.platform import default_device
+
 
 @dataclasses.dataclass(frozen=True)
 class PinholeCameraIntrinsic:
@@ -21,10 +23,11 @@ class PinholeCameraIntrinsic:
     cy: float
 
     def intrinsic_matrix(self, device=None) -> torch.Tensor:
+        """The 3x3 matrix, on the card unless `device` names another."""
         return torch.tensor(
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
             dtype=torch.float32,
-            device=device,
+            device=default_device(device),
         )
 
     def scaled(self, factor: float) -> "PinholeCameraIntrinsic":

@@ -136,6 +136,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,  # stream
     ]
     lib.o3dt_fuse_blocks.restype = I
+    lib.o3dt_fuse_occupancy.argtypes = [I, I, P]  # with_color, B3, int[4] out
+    lib.o3dt_fuse_occupancy.restype = I
     lib.o3dt_integrate_blocks_v1.argtypes = [
         P, P, P, P, I, I,  # tw, color, slots, coords, M, C
         P, I, I,  # planes (5, H, W) bf16, H, W
@@ -147,6 +149,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_integrate_blocks_v1.restype = I
     lib.o3dt_micro_gather.argtypes = [P, P, P, I, ctypes.c_longlong, P]  # table, idx, out, R, n
     lib.o3dt_micro_gather.restype = I
+    lib.o3dt_micro_gather_occupancy.argtypes = [I, P]  # R, int[4] out
+    lib.o3dt_micro_gather_occupancy.restype = I
     lib.o3dt_micro_raymarch.argtypes = [P, P, P, I, I, P]  # tw, rows, out, T, C
     lib.o3dt_micro_raymarch.restype = I
     lib.o3dt_micro_raymarch_occupancy.argtypes = [P, P]  # int* CTAs a multiprocessor, int* SMs
@@ -175,6 +179,15 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
     return _lib
+
+
+def occupancy(entry: str, *args) -> dict:
+    """A kernel's CTAs a multiprocessor, the card's multiprocessors, its
+    threads a CTA and registers a thread, from the C entry `entry`(*args,
+    int out[4])."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(load(), entry)(*args, out))
+    return dict(zip(("ctas_per_sm", "sms", "threads", "registers"), out))
 
 
 def check(err: int) -> None:

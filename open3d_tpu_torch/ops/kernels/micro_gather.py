@@ -12,7 +12,9 @@ the lane after a one-hot row select, and compute the same function. The
 script's S_CHUNK is a TPU grid size and only names the configuration.
 Bound: bytes, NT * 8 + R * 512 (each index read and each output written
 once, the table read once), against no arithmetic; the kernel keeps the
-table in shared memory and streams idx and out in 16-byte accesses.
+table in shared memory (copied in by the Tensor Memory Accelerator while
+the first index loads are in flight) and streams idx and out in 16-byte
+accesses, several loads in flight a thread.
 
     python -m open3d_tpu_torch.ops.kernels.micro_gather
 
@@ -28,6 +30,7 @@ from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 CONFIGS = ((32, 2048), (320, 2048), (32, 8192))  # (R, S_CHUNK), the script's
 NS = 12_000_000
 SMEM_LIMIT = 232_448  # bytes of shared memory a CTA may hold on Hopper
+BARRIER_BYTES = 16  # the table copy's mbarrier, after the table
 
 
 def n_indices(s_chunk: int) -> int:
@@ -75,7 +78,7 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_plain(table, idx)
     if dev.type != "cuda":
         raise ValueError(f"gather: unsupported device {dev}")
-    if R * 128 * 4 > SMEM_LIMIT:
+    if R * 128 * 4 + BARRIER_BYTES > SMEM_LIMIT:
         raise ValueError(f"table: {R} rows do not fit in one CTA's shared memory")
     if table.data_ptr() % 16 or idx.data_ptr() % 16:
         raise ValueError("table and idx must start on a 16-byte boundary")
@@ -92,6 +95,14 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather.launches = 0
+
+
+def occupancy(R: int) -> dict:
+    """The kernel for an (R, 128) table on the card: CTAs a multiprocessor,
+    multiprocessors, threads a CTA, registers a thread."""
+    from open3d_tpu_torch.ops.kernels import _build
+
+    return _build.occupancy("o3dt_micro_gather_occupancy", R)
 
 
 def main() -> None:

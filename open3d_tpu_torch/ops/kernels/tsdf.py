@@ -13,7 +13,11 @@ fragments.
 Bound: bytes. A live row reads its tsdf sample (4 B), weight sample (4 B)
 and colour sample (4 B) and its tw and colour words (8 B), and writes the
 two words back (8 B): 28 B a voxel, against ~30 float32 operations. The
-kernel reads and writes each word once.
+kernel reads and writes each word once: a CTA scans eight work-list
+entries and its threads take the live rows' 4-voxel groups, issuing each
+group's five 16-byte loads in one burst, so every row and sample tensor
+must start on a 16-byte boundary when B^3 % 4 == 0 (the wrapper checks;
+other block sizes go one voxel a group).
 
 Function: the running weighted mean of the JAX kernels, their s1.14 | u16
 tsdf/weight repack with round-half-to-even, and the R11|G11|B10 colour
@@ -33,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 
 _TSDF_SCALE = 16383.0
@@ -115,6 +120,11 @@ def fuse_blocks(
     _check("rows", rows, torch.int32, dev, (M,))
     _check("tsdf_new", tsdf_new, torch.float32, dev, (M, B3))
     _check("wn", wn, torch.float32, dev, (M, B3))
+    if B3 % 4 == 0:
+        for name, t in (("tw", tw), ("color", color), ("tsdf_new", tsdf_new), ("wn", wn),
+                        ("cnew", cnew)):
+            if t is not None:
+                check_aligned(name, t)
 
     if dev.type == "cpu":
         fuse_blocks_plain(tw, color, rows, tsdf_new, wn, cnew, weight_max)
@@ -137,3 +147,31 @@ def fuse_blocks(
 
 
 fuse_blocks.launches = 0
+
+
+def occupancy(with_color: bool, B3: int) -> dict:
+    """The kernel for this variant and row size on the card: CTAs a
+    multiprocessor, multiprocessors, threads a CTA, registers a thread."""
+    from open3d_tpu_torch.ops.kernels import _build
+
+    return _build.occupancy("o3dt_fuse_occupancy", int(with_color), B3)
+
+
+def synthetic_work_list(generator: torch.Generator, device, C: int = 8192, M: int = 4096,
+                        n_live: int = 395, B: int = 8):
+    """Inputs shaped like a fragment frame's (the reconstruction defaults:
+    8192 blocks of 8^3, a 4096-entry work list of which about 395 are live):
+    tw words of random tsdf and weights below 64, random colour words, the
+    first n_live entries distinct random rows (unique_keys packs the live
+    keys first) and the rest the dump row C, random samples. Returns (tw,
+    color, rows, tsdf_new, wn, cnew)."""
+    g, dev, B3 = generator, device, B**3
+    tw = torch.randint(-2**31, 2**31 - 1, (C + 1, B3), generator=g, device=dev,
+                       dtype=torch.int32) & ~0xFFC0
+    color = torch.randint(0, 2**31 - 1, (C + 1, B3), generator=g, device=dev, dtype=torch.int32)
+    rows = torch.full((M,), C, dtype=torch.int32, device=dev)
+    rows[:n_live] = torch.randperm(C, generator=g, device=dev)[:n_live].to(torch.int32)
+    tsdf_new = torch.rand((M, B3), generator=g, device=dev) * 2 - 1
+    wn = (torch.rand((M, B3), generator=g, device=dev) > 0.3).float()
+    cnew = torch.randint(0, 2**31 - 1, (M, B3), generator=g, device=dev, dtype=torch.int32)
+    return tw, color, rows, tsdf_new, wn, cnew

@@ -128,7 +128,7 @@ def test_activate_and_find(rng, capacity, n_keys):
     b1 = keys[:n_keys].copy()
     b1[::17] = 0  # invalid rows are ignored
     b2 = keys[n_keys // 2 : n_keys // 2 + n_keys].copy()
-    tj, tt = jhm.make_table(capacity), thm.make_table(capacity)
+    tj, tt = jhm.make_table(capacity), thm.make_table(capacity, device="cpu")
     for batch in (b1, b2):
         tj, sj, oj = jhm.activate(tj, jnp.asarray(batch))
         tt, st, ot = thm.activate(tt, _t(batch))

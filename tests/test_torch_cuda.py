@@ -149,12 +149,9 @@ def test_integrate_v1_kernel_matches_plain(scene):
     assert int((tw.view(g.capacity + 1, -1) & 0xFFFF).sum()) > 0
 
 
-@pytest.mark.parametrize("with_color", [True, False])
-def test_fuse_kernel_matches_plain(cuda, with_color):
-    from open3d_tpu_torch.ops.kernels import tsdf as k3
-
-    gen = torch.Generator().manual_seed(1)
-    C, M, B3 = 64, 32, 512
+def _fuse_case(cuda, B, C=64, M=32, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    B3 = B**3
     tw = torch.randint(-2**31, 2**31 - 1, (C + 1, B3), generator=gen, dtype=torch.int32)
     col = torch.randint(0, 2**31 - 1, (C + 1, B3), generator=gen, dtype=torch.int32)
     rows = torch.randperm(C, generator=gen)[:M].to(torch.int32)
@@ -162,8 +159,20 @@ def test_fuse_kernel_matches_plain(cuda, with_color):
     tsdf_new = torch.rand((M, B3), generator=gen) * 2 - 1
     wn = (torch.rand((M, B3), generator=gen) > 0.3).float()
     cnew = torch.randint(0, 2**31 - 1, (M, B3), generator=gen, dtype=torch.int32)
-    a = [x.to(cuda) for x in (tw, col, rows, tsdf_new, wn, cnew)]
+    return [x.to(cuda) for x in (tw, col, rows, tsdf_new, wn, cnew)]
+
+
+# B^3 = 512 (the fragments'), 216, 125 (one voxel a group), 4096; M = 37:
+# the last CTA's scan of 8 entries only partly filled, live entries past
+# the last full group of 8
+@pytest.mark.parametrize("B, M", [(8, 32), (6, 32), (5, 32), (16, 32), (8, 37)])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fuse_kernel_matches_plain(cuda, B, M, with_color):
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    a = _fuse_case(cuda, B, M=M)
     b = [x.clone() for x in a]
+    before = a[0].clone()
     if not with_color:
         a[1] = a[5] = b[1] = b[5] = None
     n = k3.fuse_blocks.launches
@@ -174,8 +183,26 @@ def test_fuse_kernel_matches_plain(cuda, with_color):
     assert torch.equal(a[0], b[0])
     if with_color:
         assert torch.equal(a[1], b[1])
-    live = rows[rows < C].long()
-    assert bool((a[0].cpu()[live] != tw[live]).any())
+    C = a[0].shape[0] - 1
+    live = a[2][a[2] < C].long()
+    assert bool((a[0][live] != before[live]).any())
+
+
+def test_fuse_kernel_all_dump_rows(cuda):
+    """A 4096-entry work list of dump rows only: the kernel changes nothing,
+    row C included."""
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    tw, col = _fuse_case(cuda, 8)[:2]
+    C, M = tw.shape[0] - 1, 4096
+    rows = torch.full((M,), C, dtype=torch.int32, device=cuda)
+    tsdf_new = torch.zeros((M, 512), device=cuda)
+    wn = torch.ones((M, 512), device=cuda)
+    cnew = torch.zeros((M, 512), dtype=torch.int32, device=cuda)
+    tw0, col0 = tw.clone(), col.clone()
+    k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew)
+    torch.cuda.synchronize()
+    assert torch.equal(tw, tw0) and torch.equal(col, col0)
 
 
 def test_wrapper_raises_on_mixed_devices(scene):
@@ -194,7 +221,9 @@ def test_micro_gather_kernel_matches_plain(cuda):
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
 
     gen = torch.Generator(device=cuda).manual_seed(2)
-    for R, n in [(32, 4099), (320, 1 << 16)]:  # a tail past the 16-byte steps; the 160 KB table
+    # a tail past the 16-byte steps; the 160 KB table; ending inside a
+    # grid-stride round and off a 16-byte step; the script's index count
+    for R, n in [(32, 4099), (320, 1 << 16), (320, 5 * 16384 + 4101), (320, 12_000_000)]:
         table, idx = p2.make_inputs(R, n, gen, cuda)
         count = p2.gather.launches
         out = p2.gather(table, idx)

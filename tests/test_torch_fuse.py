@@ -5,7 +5,7 @@ interpreted on the CPU as tests/test_pallas_tsdf.py runs it; then the port's
 `integrate(..., use_pallas=True)`, which reaches the same kernel.
 
 Bars: the fuse is bit-exact on the packed ints (both colour variants,
-B = 8 and 16, dump-row entries in the work list). The integrate uses
+B = 8, 16 and 6, dump-row entries in the work list). The integrate uses
 tests/test_pallas_tsdf.py's bars: tables identical, weight mismatch < 1e-6 of
 voxels, tsdf atol 1e-3 where the weights agree, colour within 2/255 at the
 99.9 % quantile.
@@ -54,7 +54,7 @@ def _fuse_inputs(B, seed, C=40, M=24):
     return tw, col, rows, tsdf_new, wn, cnew
 
 
-@pytest.mark.parametrize("B", [8, 16])
+@pytest.mark.parametrize("B", [8, 16, 6])  # 6: B^3 = 216, no power of two
 @pytest.mark.parametrize("with_color", [True, False])
 def test_fuse_plain_matches_interpreted_kernel(B, with_color):
     tw, col, rows, tsdf_new, wn, cnew = _fuse_inputs(B, seed=B + with_color)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import open3d_tpu_torch
+from open3d_tpu_torch.core import hashmap as hm
 from open3d_tpu_torch.core import platform
 from open3d_tpu_torch.geometry import voxel_block_grid as tvbg
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
@@ -89,6 +90,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
         tvbg.create(block_count=8)
     assert platform.default_device("cpu") == torch.device("cpu")
     assert tvbg.create(block_count=8, device="cpu").tw.device.type == "cpu"
+
+
+def test_factories_raise_without_cuda(monkeypatch):
+    """make_table, empty_keys and intrinsic_matrix create on the card unless
+    the caller names a device, like every other creation entry point."""
+    intr = PinholeCameraIntrinsic(16, 12, 10.0, 10.0, 8.0, 6.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: hm.make_table(8, **kw), lambda **kw: hm.empty_keys((3, 4), **kw),
+                 lambda **kw: intr.intrinsic_matrix(**kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    assert tuple(hm.make_table(8, device="cpu").shape) == (8, 2)
+    assert tuple(hm.empty_keys(5, device="cpu").shape) == (5, 2)
+    assert float(intr.intrinsic_matrix(device="cpu")[0, 2]) == 8.0
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -224,6 +240,27 @@ def test_fuse_wrapper_refuses_bad_inputs(arg, bad):
     args[arg] = bad(args[arg])
     with pytest.raises((TypeError, ValueError)):
         k3.fuse_blocks(*args)
+
+
+@pytest.mark.parametrize("arg", [0, 1, 3, 4, 5], ids=["tw", "color", "tsdf_new", "wn", "cnew"])
+def test_fuse_wrapper_refuses_misaligned_rows(arg):
+    """K3 moves rows and samples as 16-byte groups when B^3 % 4 == 0, so
+    each of them must start on a 16-byte boundary; checked before the
+    device branch, so on the CPU as well."""
+    args = _k3_inputs()
+    args[arg] = _misaligned_rows(args[arg])
+    with pytest.raises(ValueError, match="aligned"):
+        k3.fuse_blocks(*args)
+
+
+def test_fuse_wrapper_takes_any_alignment_for_odd_blocks():
+    """B = 5 (B^3 = 125) rows go one voxel a group, so a row base off a
+    16-byte boundary is no fault there."""
+    args = _k3_inputs(B=5)
+    args[0] = _misaligned_rows(args[0])
+    k3.fuse_blocks(*args)
+    t, w = tvbg.unpack_tw(args[0][:3])
+    assert float(w.min()) == 1.0 and int(args[0][-1].abs().sum()) == 0
 
 
 def test_fuse_wrapper_accepts_good_inputs():
