@@ -62,6 +62,7 @@ import argparse
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -441,6 +442,29 @@ def probe_library_call(probe, inputs):
     return lambda: torch.matmul(x, y)
 
 
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+
+
+def sass_op_counts(lib_path, kernels) -> dict:
+    """For each compiled function whose name contains one of `kernels`
+    (its template argument appended, as "<80>"), the number of each SASS
+    instruction in SASS_OPS, read with cuobjdump from the toolkit that
+    built the library."""
+    from open3d_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, check=True).stdout
+    counts = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        for k in kernels:
+            if k in fn:
+                arg = re.search(r"ILi(\d+)E", fn)
+                counts[k + (f"<{arg.group(1)}>" if arg else "")] = {
+                    op: len(re.findall(r"\b" + op + r"\b", body)) for op in SASS_OPS}
+    return counts
+
+
 def p2_row(p2, R: int, s_chunk: int, table, idx, out=None) -> dict:
     """P2 at one configuration: `out` (the kernel's output, computed here
     when not given) bit-equal to the plain version; kernel, plain and
@@ -473,6 +497,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     entries of the summary line."""
     import torch
 
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
     from open3d_tpu_torch.ops.kernels import micro_primitives as p1
     from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
@@ -556,14 +581,22 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
         rel = p1.rel_err(out, ref)
         check(rel <= p1.tolerance(p), f"P1 {p.name}: {rel} > {p1.tolerance(p)}")
         peak = H100_BF16_PER_S if p.family == "mma_bf16" else H100_F32_PER_S
+        ns, spread = p1.slope_ns(p, ins)
         row = {"name": p.name, "family": p.family, "rel_err": rel, "tolerance": p1.tolerance(p),
                "max_abs_err": float((out.float() - ref.float()).abs().max()),
-               "ns": p1.slope_ns(p, ins),
+               "ns": ns, "spread_ns": spread,
                "plain_ns": device_ms(lambda: p1.probe_plain(p, ins, p1.ITERS_LO), reps=1,
                                    warmup=0) / p1.ITERS_LO * 1e6,
                "library_ns": device_ms(probe_library_call(p, ins), reps=100) * 1e6,
                "bound_ns": p1.instance_ops(p) / peak * 1e9, "bound_by": "operations"}
+        row["x_bound"] = row["ns"] / row["bound_ns"]
+        if p.family in ("mma_bf16", "ffma"):
+            row["occupancy"] = p1.occupancy(p)
         log(f"[10] P1 {row}")
+        occ = row.get("occupancy", {})
+        log(f"[10] P1 row | {p.name} | {ns:.1f} ns | bound {row['bound_ns']:.1f} ns | "
+            f"{row['x_bound']:.2f}x | library {row['library_ns']:.1f} ns | spread {spread:.1f} ns"
+            + (f" | {occ['registers']} registers, {occ['ctas_per_sm']} CTAs/SM" if occ else ""))
         probes.append(row)
     p1_entry = {
         "name": "micro_primitives", "route": "cuda",
@@ -573,11 +606,21 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
         "ms": total(probes, "ns") / 1e6, "plain_ms": total(probes, "plain_ns") / 1e6,
         "bound_ms": total(probes, "bound_ns") / 1e6, "bound_by": "operations",
         "library_ms": total(probes, "library_ns") / 1e6,
-        "times": "one instance of each of the 17 probes, summed",
+        "spread_ns": total(probes, "spread_ns"),
+        "times": f"one instance of each of the 17 probes, summed; each the median of {p1.N_SLOPES} slopes",
         "parity": {r["name"]: r["rel_err"] for r in probes},
         "tolerance": {r["name"]: r["tolerance"] for r in probes}, "probes": probes,
     }
     p1_entry["kernel_ms"] = p1_entry["ms"]
+    # the bfloat16 product runs on wgmma, the float32 product on fmaf alone
+    sass = sass_op_counts(_build.build(), ("wgmma_bf16_kernel", "ffma_kernel"))
+    log(f"[10] P1 SASS instruction counts {sass}")
+    mma = [v for k, v in sass.items() if k.startswith("wgmma_bf16_kernel")]
+    check(len(mma) == 2 and all(v["HGMMA"] > 0 for v in mma), f"P1 bf16 product on HGMMA {sass}")
+    f32 = sass.get("ffma_kernel", {})
+    check(f32.get("FFMA", 0) > 0 and f32["HMMA"] == 0 and f32["HGMMA"] == 0,
+          f"P1 float32 product on FFMA alone {sass}")
+    p1_entry["sass"] = sass
     log(f"[10] probes' phase {time.perf_counter() - t_start:.1f} s")
     return [p1_entry, p2_entry, p3_entry]
 

@@ -15,47 +15,43 @@
 //   sublane_kernel      sums of x + i over 128 rows of each (128, 128) slab;
 //   onehot_kernel       (lane == idx + i) as bfloat16, accumulated in
 //                       bfloat16;
-//   mma_bf16_kernel     (a + bf16(i)) @ b, bfloat16 in, float32 sums, on the
-//                       tensor cores with mma.sync m16n8k16 written here;
+//   wgmma_bf16_kernel   (a + bf16(i)) @ b, bfloat16 in, float32 sums, on the
+//                       tensor cores with wgmma.mma_async written here;
 //   ffma_kernel         (a + i) @ v in float32 with fmaf, not TF32, as the
 //                       interpreted kernel computes it.
 //
 // Bound: operations. The instance's `+ i`, its accumulate and the operation
-// itself, over the float32 rate (the bfloat16 tensor rate for mma_bf16).
-// The inputs are staged into shared memory once a launch and stay there for
-// every iteration, so device memory is not what the slope measures.
+// itself, over the float32 rate (the bfloat16 tensor rate for the bfloat16
+// product). The inputs are read from device memory once a launch and stay in
+// shared memory or registers for every iteration, so device memory is not
+// what the slope measures.
 //
-// Design: every CTA stages its slice of the inputs into shared memory and
-// keeps its outputs' sums in registers across the iterations. Where a
-// thread's inputs would fit in its registers (the elementwise, relayout,
-// gather, reduction and one-hot probes) it reads them through a volatile
-// pointer in every iteration, as the script's body reads its VMEM refs in
-// every iteration: the loop then times the shared-memory access pattern of
-// the relayout or gather, and no load is hoisted. The index enters the
-// arithmetic as the body has it (float(i) for float32, bf16(i) for the
-// bfloat16 product, i for the one-hot compare) and each iteration's value is
-// added to the sum, so the accumulate cannot be hoisted either. The products
-// keep their operands in shared memory and read them with ordinary loads
-// (A and V as float4 rows for fmaf, 32-bit fragments for mma.sync), which
-// the compiler may keep in registers; the `+ i`, the product and the
-// accumulate still run every iteration. Rows are laid out or padded so that
-// no load conflicts on a bank, except where a probe's own access pattern
-// does (the gathers).
+// Design: every thread keeps its outputs' sums in registers across the
+// iterations. Where a probe times a shared-memory access pattern (the
+// elementwise, relayout, gather, mask-multiply and one-hot probes), its CTA
+// stages its slice of the inputs into shared memory once and reads it
+// through a volatile pointer in every iteration, as the script's body reads
+// its VMEM refs in every iteration, so no load is hoisted. The segment sum,
+// the sublane sum and the two products keep their inputs in registers (the
+// bfloat16 product's b in shared memory, where wgmma reads it) and keep
+// per-thread partials across the iterations, reduced across lanes, warps
+// and CTAs once after the loop: sum_i sum_k is sum_k sum_i. The index enters
+// the arithmetic as the body has it (float(i) for float32, bf16(i) for the
+// bfloat16 product, i for the one-hot compare), and every `+ i`, product
+// and accumulate of an instance runs in its own iteration.
 //
 // Launch geometry: every probe but the five smallest launches at least 128
-// CTAs, so that 128 or more of the 132 multiprocessors hold warps (with
-// 16-80 CTAs a probe times idle multiprocessors, not its primitive): the
-// products take 2 x 2 (fmaf) or 32 x 32 (mma.sync) outputs a warp in small
-// CTAs, the sublane sum a warp of 8 columns. The five smallest, with 2048 to
-// 4096 outputs (mul (2048,1), mul (32,128), reshape, the one-column gather,
-// transpose (2048,8)), are bound by the latency of their loop-carried
-// accumulate, one dependent add an iteration, which more CTAs do not shorten.
+// CTAs, so that 128 or more of the 132 multiprocessors hold warps. The five
+// smallest, with 2048 to 4096 outputs (mul (2048,1), mul (32,128), reshape,
+// the one-column gather, transpose (2048,8)), are bound by the latency of
+// their loop-carried accumulate, one dependent add an iteration, which more
+// CTAs do not shorten.
 //
-// Rounding: --fmad=false and no fmaf outside the float32 products, so the
+// Rounding: --fmad=false and no fmaf outside the float32 product, so the
 // elementwise, relayout, gather, reduction and one-hot probes agree bit for
-// bit with the plain PyTorch version (whose row sums take this file's order:
-// lane partials, then the warp's xor butterfly); the products sum in
-// another order than cuBLAS and agree within the bars chip_smoke.py states.
+// bit with the plain PyTorch version (whose row sums take this file's
+// order); the products sum in another order than cuBLAS and agree within the
+// bars micro_primitives.tolerance states.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -218,68 +214,73 @@ __global__ void __launch_bounds__(kThreads) maskmul_kernel(const float* __restri
 }
 
 // out[r][p] = sum_i sum_{l < 128} x[r][128 p + l] + i for p < 5: a warp a
-// row, 8 rows a CTA.
+// row, 8 rows a CTA. Lane l keeps its 20 values x[r][128 p + l + 32 q] in
+// registers and, for each segment, a partial over the iterations of its four
+// values' sum ((v0 + v1) + v2) + v3; the warp's xor butterfly adds the 32
+// lane partials once, after the loop (sum over i, then over lanes).
 __global__ void __launch_bounds__(kThreads) segment_kernel(const float* __restrict__ x,
                                                            float* __restrict__ out, int rows,
                                                            int iters) {
   constexpr int kSeg = 5, kCols = kSeg * kLanes;
-  __shared__ float xs[8 * kCols];
-  const int r0 = blockIdx.x * 8;
-  const int nr = min(8, rows - r0);
-  for (int j = threadIdx.x; j < nr * kCols; j += kThreads) xs[j] = x[static_cast<int64_t>(r0) * kCols + j];
-  __syncthreads();
-  const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (row >= nr) return;
-  const volatile float* xv = xs + row * kCols;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* src = x + static_cast<int64_t>(row) * kCols + lane;
+  float xv[kSeg][4];
+#pragma unroll
+  for (int p = 0; p < kSeg; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xv[p][q] = src[p * kLanes + 32 * q];
   float acc[kSeg] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int i = 0; i < iters; ++i) {
     const float fi = static_cast<float>(i);
 #pragma unroll
     for (int p = 0; p < kSeg; ++p) {
-      float s = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s = s + (xv[p * kLanes + lane + 32 * q] + fi);
-      acc[p] = acc[p] + warp_sum(s);
+      const float s = (((xv[p][0] + fi) + (xv[p][1] + fi)) + (xv[p][2] + fi)) + (xv[p][3] + fi);
+      acc[p] = acc[p] + s;
     }
   }
+#pragma unroll
+  for (int p = 0; p < kSeg; ++p) acc[p] = warp_sum(acc[p]);
   if (lane < kSeg) {
     float v = acc[0];
 #pragma unroll
     for (int p = 1; p < kSeg; ++p) v = lane == p ? acc[p] : v;
-    out[static_cast<int64_t>(r0 + row) * kSeg + lane] = v;
+    out[static_cast<int64_t>(row) * kSeg + lane] = v;
   }
 }
 
-// out[a][c] = sum_i sum_{b < 128} x[128 a + b][c] + i. The sum over b keeps
-// the order the plain version mirrors: four running sums s_j over the rows
-// b = 4 t + j, t in order, then (s0 + s1) + (s2 + s3). Those 8192 chains (16
-// slabs x 128 columns x 4) are the probe's parallelism, so each is a thread:
-// a warp takes 8 columns of one slab, lane 4 c + j the chain s_j of column c,
-// and two xor shuffles add the four in that order. A warp is a CTA, so the 256
-// warps spread over every multiprocessor. The warp's 128 x 8 slice is staged
-// column-minor, where the 32 lanes read 32 distinct banks.
-constexpr int kSubCols = 8;
+// out[a][c] = sum_i sum_{b < 128} x[128 a + b][c] + i. A thread keeps 16 rows
+// b = 16 g + j of one column in registers and 16 independent partials over
+// the iterations, p_j = sum_i x[128 a + 16 g + j][c] + i, so an iteration is
+// 32 adds with no chain longer than one add. After the loop the thread sums
+// its partials in j order and three xor shuffles add the 8 row groups g
+// (lanes 8 cc + g: a warp takes 4 columns); the plain version takes that
+// order. 16 slabs x 128 columns x 8 groups = 512 warps in 128 CTAs of 4.
+constexpr int kSubRows = 16, kSubGroups = kLanes / kSubRows, kSubColsWarp = 32 / kSubGroups;
+constexpr int kSubThreads = 128, kSubColsCta = kSubColsWarp * (kSubThreads / 32);
 
-__global__ void __launch_bounds__(32) sublane_kernel(const float* __restrict__ x,
-                                                     float* __restrict__ out, int iters) {
-  __shared__ float xs[kLanes * kSubCols];  // [b][c]
-  const int a = blockIdx.y, c0 = blockIdx.x * kSubCols;
-  const int lane = threadIdx.x, c = lane >> 2, j = lane & 3;
-  const float* src = x + static_cast<int64_t>(a) * kLanes * kLanes + c0;
-  for (int e = lane; e < kLanes * kSubCols; e += 32) xs[e] = src[(e / kSubCols) * kLanes + e % kSubCols];
-  __syncwarp();
-  const volatile float* xv = xs + j * kSubCols + c;  // row b = 4 t + j at xv[4 t * kSubCols]
-  float acc = 0.0f;
+__global__ void __launch_bounds__(kSubThreads) sublane_kernel(const float* __restrict__ x,
+                                                              float* __restrict__ out, int iters) {
+  const int a = blockIdx.y, lane = threadIdx.x & 31, g = lane % kSubGroups;
+  const int c = blockIdx.x * kSubColsCta + (threadIdx.x >> 5) * kSubColsWarp + lane / kSubGroups;
+  const float* src = x + (static_cast<int64_t>(a) * kLanes + kSubRows * g) * kLanes + c;
+  float xv[kSubRows], p[kSubRows];
+#pragma unroll
+  for (int j = 0; j < kSubRows; ++j) {
+    xv[j] = src[j * kLanes];
+    p[j] = 0.0f;
+  }
   for (int i = 0; i < iters; ++i) {
     const float fi = static_cast<float>(i);
-    float s = 0.0f;
-#pragma unroll 8
-    for (int t = 0; t < kLanes / 4; ++t) s = s + (xv[4 * t * kSubCols] + fi);
-    s = s + __shfl_xor_sync(0xffffffffu, s, 1);  // s0 + s1, s2 + s3
-    s = s + __shfl_xor_sync(0xffffffffu, s, 2);  // (s0 + s1) + (s2 + s3)
-    acc = acc + s;
+#pragma unroll
+    for (int j = 0; j < kSubRows; ++j) p[j] = p[j] + (xv[j] + fi);
   }
-  if (j == 0) out[a * kLanes + c0 + c] = acc;
+  float t = p[0];
+#pragma unroll
+  for (int j = 1; j < kSubRows; ++j) t = t + p[j];
+#pragma unroll
+  for (int off = kSubGroups / 2; off > 0; off >>= 1) t = t + __shfl_xor_sync(0xffffffffu, t, off);
+  if (g == 0) out[a * kLanes + c] = t;
 }
 
 // ---- one-hot build ---------------------------------------------------------
@@ -303,14 +304,28 @@ __global__ void __launch_bounds__(kThreads) onehot_kernel(const int32_t* __restr
   out[(static_cast<int64_t>(r0 + row) * kLanes + c) / 2] = acc;
 }
 
-// ---- bfloat16 product on the tensor cores ------------------------------------
-// out (M, N) = sum_i (a + bf16(i)) @ b, a (M, K), b (K, N) bfloat16, float32
-// sums. A CTA takes a 64 x 32 tile of out and all of K; 2 warps as 2 x 1,
-// each warp 32 x 32 of out as 2 x 4 mma.sync m16n8k16 tiles. The small tile
-// gives 128 CTAs for N = 128 and 640 for N = 640. a is staged row by row and b transposed (n by k), both padded
-// by 8 bfloat16 a row, so the 32-bit fragment loads hit 32 distinct banks.
-constexpr int kMmaRows = 64, kMmaCols = 32;
-constexpr int kMmaWarpsM = kMmaRows / 32, kMmaThreads = 32 * kMmaWarpsM * (kMmaCols / 32);
+// ---- bfloat16 product on the tensor cores (wgmma) -----------------------------
+// out (M, N) = sum_i (a + bf16(i)) @ b, a (M, 128), b (128, N) bfloat16,
+// float32 sums. One warpgroup (128 threads) a CTA takes a 64 x NT tile of out
+// with wgmma.mma_async m64nNTk16, NT = 80 where N is a multiple of 80 (256
+// CTAs for N = 640, two a multiprocessor), else 32 (128 CTAs for N = 128).
+//   A from registers: a thread loads its m64k16 fragments of a once (8
+//     k-steps x 4 registers, the mma.sync m16n8k16 layout, warp w rows
+//     16 w ... 16 w + 15) and adds bf16(i) to them each iteration with one
+//     bfloat16 add (round to nearest), as the body's a + i.astype(bf16).
+//   B from shared memory: b^T (NT x 128) is staged once a launch in the
+//     no-swizzle K-major core-matrix layout (8 rows x 16 bytes, 128 bytes
+//     contiguous; the two k-halves of a k-step 128 bytes apart, 8-row groups
+//     2048 bytes apart), so every core matrix is one conflict-free 128-byte
+//     read; a k-step's descriptor starts 256 bytes after the last.
+//   Each iteration's product starts at scale-d = 0 on its first k-step and
+//   is added to a separate float32 sum with a round-to-nearest add: the
+//   tensor cores truncate into their accumulator, and 1000-9000 truncations
+//   into a sum near 1.6e7 would approach the 1e-4 bar. Two product buffers
+//   and two A buffers alternate, so iteration i + 1's products are issued
+//   before iteration i's are added (wait_group 1).
+constexpr int kMmaRows = 64, kMmaK = 128, kMmaKSteps = kMmaK / 16, kMmaThreads = 128;
+constexpr int kMmaWide = 80, kMmaNarrow = 32;
 
 __device__ __forceinline__ uint32_t add_bf16x2(uint32_t v, __nv_bfloat162 s) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
@@ -318,176 +333,284 @@ __device__ __forceinline__ uint32_t add_bf16x2(uint32_t v, __nv_bfloat162 s) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-__global__ void __launch_bounds__(kMmaThreads) mma_bf16_kernel(const __nv_bfloat16* __restrict__ a,
-                                                            const __nv_bfloat16* __restrict__ b,
-                                                            float* __restrict__ out, int K, int N,
-                                                            int iters) {
-  extern __shared__ __align__(16) __nv_bfloat16 sm[];
-  const int ld = K + 8;
-  __nv_bfloat16* as = sm;                  // [kMmaRows][ld]
-  __nv_bfloat16* bs = sm + kMmaRows * ld;  // [kMmaCols][ld], b transposed
-  const int m0 = blockIdx.y * kMmaRows, n0 = blockIdx.x * kMmaCols;
-  const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
-  uint32_t* as32 = reinterpret_cast<uint32_t*>(as);
-  for (int j = threadIdx.x; j < kMmaRows * K / 2; j += kMmaThreads) {
-    const int m = j / (K / 2), kk = j % (K / 2);
-    as32[m * (ld / 2) + kk] = a32[static_cast<int64_t>(m0 + m) * (K / 2) + kk];
+__device__ __forceinline__ void wgmma_m64n80k16(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tile(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+  if constexpr (NT == kMmaWide) {
+    wgmma_m64n80k16(d, a, desc, scale_d);
+  } else {
+    wgmma_m64n32k16(d, a, desc, scale_d);
   }
-  for (int j = threadIdx.x; j < kMmaCols * K; j += kMmaThreads) {
-    const int n = j % kMmaCols, k = j / kMmaCols;
-    bs[n * ld + k] = b[static_cast<int64_t>(k) * N + n0 + n];
+}
+
+// Keeps the compiler from moving reads or writes of v across this point
+// (the wgmma results are written behind its back until wait_group).
+__device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+template <int N_WAIT>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N_WAIT) : "memory");
+}
+
+// A shared-memory matrix descriptor, no swizzle: start address, leading
+// byte offset (the next core matrix along k), stride byte offset (the next
+// 8-row group), each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// The products of one iteration: A fragments af (already + bf16(i)) times
+// the staged b, into d, as one committed wgmma group.
+template <int NT>
+__device__ __forceinline__ void issue_products(float* d, const uint32_t (&af)[kMmaKSteps][4],
+                                               uint64_t desc) {
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) fence_operand(d[j]);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < kMmaKSteps; ++ks) wgmma_tile<NT>(d, af[ks], desc + ks * (256 >> 4), ks > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void add_index(uint32_t (&am)[kMmaKSteps][4],
+                                          const uint32_t (&af)[kMmaKSteps][4], int i) {
+  const __nv_bfloat162 ib = __bfloat162bfloat162(__float2bfloat16_rn(static_cast<float>(i)));
+#pragma unroll
+  for (int ks = 0; ks < kMmaKSteps; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) am[ks][r] = add_bf16x2(af[ks][r], ib);
+}
+
+// acc += d, after d's group has completed.
+template <int NT>
+__device__ __forceinline__ void add_products(float* acc, float* d) {
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    fence_operand(d[j]);
+    acc[j] = acc[j] + d[j];
   }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads) wgmma_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                                                                const __nv_bfloat16* __restrict__ b,
+                                                                float* __restrict__ out, int N,
+                                                                int iters) {
+  extern __shared__ __align__(1024) unsigned char mma_smem[];
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  constexpr uint32_t kLbo = 128, kSbo = (kMmaK / 8) * 128;
+  const int m0 = blockIdx.y * kMmaRows, n0 = blockIdx.x * NT;
+  for (int e = threadIdx.x; e < NT * kMmaK; e += kMmaThreads) {
+    const int n = e % NT, k = e / NT;
+    bs[((n >> 3) * kSbo + (k >> 3) * kLbo + (n & 7) * 16) / 2 + (k & 7)] =
+        b[static_cast<int64_t>(k) * N + n0 + n];
+  }
+  // the generic-proxy stores above must be visible to the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % kMmaWarpsM, wn = warp / kMmaWarpsM;
-  const int g = lane >> 2, t4 = lane & 3;
-  float acc[2][4][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int row = m0 + warp * 16 + g;
+  uint32_t af[kMmaKSteps][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-  for (int i = 0; i < iters; ++i) {
-    const __nv_bfloat162 ib = __bfloat162bfloat162(__float2bfloat16_rn(static_cast<float>(i)));
-    float p[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[mt][nt][e] = 0.0f;
-    for (int ks = 0; ks < K / 16; ++ks) {
-      const int col = ks * 16 + t4 * 2;
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm * 32 + mt * 16 + g;
-        const uint32_t* lo = reinterpret_cast<const uint32_t*>(as + row * ld + col);
-        const uint32_t* hi = reinterpret_cast<const uint32_t*>(as + (row + 8) * ld + col);
-        af[mt][0] = add_bf16x2(lo[0], ib);
-        af[mt][1] = add_bf16x2(hi[0], ib);
-        af[mt][2] = add_bf16x2(lo[4], ib);
-        af[mt][3] = add_bf16x2(hi[4], ib);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t* bp =
-            reinterpret_cast<const uint32_t*>(bs + (wn * 32 + nt * 8 + g) * ld + col);
-        bf[nt][0] = bp[0];
-        bf[nt][1] = bp[4];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(p[mt][nt], af[mt], bf[nt]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = acc[mt][nt][e] + p[mt][nt][e];
+  for (int ks = 0; ks < kMmaKSteps; ++ks) {
+    const int col = ks * 16 + t4 * 2;
+    const uint32_t* lo = reinterpret_cast<const uint32_t*>(a + static_cast<int64_t>(row) * kMmaK + col);
+    const uint32_t* hi = reinterpret_cast<const uint32_t*>(a + static_cast<int64_t>(row + 8) * kMmaK + col);
+    af[ks][0] = lo[0];
+    af[ks][1] = hi[0];
+    af[ks][2] = lo[4];
+    af[ks][3] = hi[4];
   }
+  const uint64_t desc = smem_desc(bs, kLbo, kSbo);
+  float acc[NT / 2], d0[NT / 2], d1[NT / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm * 32 + mt * 16 + g;
-      const int col = n0 + wn * 32 + nt * 8 + t4 * 2;
-      out[static_cast<int64_t>(row) * N + col] = acc[mt][nt][0];
-      out[static_cast<int64_t>(row) * N + col + 1] = acc[mt][nt][1];
-      out[static_cast<int64_t>(row + 8) * N + col] = acc[mt][nt][2];
-      out[static_cast<int64_t>(row + 8) * N + col + 1] = acc[mt][nt][3];
+  for (int j = 0; j < NT / 2; ++j) acc[j] = d0[j] = d1[j] = 0.0f;
+  uint32_t am0[kMmaKSteps][4], am1[kMmaKSteps][4];
+  if (iters > 0) {
+    // invariant at the loop's top: iteration i - 1 is in flight into d0
+    add_index(am0, af, 0);
+    issue_products<NT>(d0, am0, desc);
+    int i = 1;
+    for (; i + 1 < iters; i += 2) {
+      add_index(am1, af, i);
+      issue_products<NT>(d1, am1, desc);
+      wgmma_wait<1>();
+      add_products<NT>(acc, d0);
+      add_index(am0, af, i + 1);
+      issue_products<NT>(d0, am0, desc);
+      wgmma_wait<1>();
+      add_products<NT>(acc, d1);
     }
+    if (i < iters) {
+      add_index(am1, af, i);
+      issue_products<NT>(d1, am1, desc);
+      wgmma_wait<1>();
+      add_products<NT>(acc, d0);
+      wgmma_wait<0>();
+      add_products<NT>(acc, d1);
+    } else {
+      wgmma_wait<0>();
+      add_products<NT>(acc, d0);
+    }
+  }
+  // accumulator layout: d[4 j + e] holds row g (e < 2) or g + 8, column 8 j + 2 t4 + (e & 1)
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * N + col) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + static_cast<int64_t>(row + 8) * N + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
 // ---- float32 product with fmaf -------------------------------------------------
-// out (16, N) = sum_i (a + i) @ v, a (16, K), v (K, N) float32. A warp takes
-// 2 rows x 2 columns of out: lane l reads the float4s k4 = l + 32 q of its
-// two rows of a and two columns of v, adds i to the a values once for both
-// columns, and keeps four fmaf chains (one a float4 component) for each of
-// its 4 outputs; an output's chains are added as (s0 + s1) + (s2 + s3) and
-// the warp's xor butterfly sums the lanes. The 2 x 2 tile reads 4 bytes of
-// shared memory an fmaf, where an output a warp would read 8. A CTA is 4
-// warps as 2 x 2, so 4 rows x 4 columns: N = 128 gives 128 CTAs and N = 640
-// gives 640. The CTA's rows of a and
-// columns of v (transposed) are staged unpadded; a warp's float4 loads are
-// consecutive. cuBLAS sums in another order, within tolerance().
-constexpr int kFfmaRows = 4, kFfmaCols = 4, kFfmaThreads = 32 * (kFfmaRows / 2) * (kFfmaCols / 2);
+// out (M, N) = sum_i (a + i) @ v, a (M, K), v (K, N) float32, on the FP32
+// pipes (fmaf; no TF32, no tensor cores). Register-blocked: a thread keeps a
+// 4 x 8 tile of out over a chunk of 8 k, with its 4 x 8 values of a and
+// 8 x 8 of v in registers for the whole launch, so the loop reads no memory.
+// An iteration forms a + i once for each of its 32 a values, runs 256 fmaf
+// (4 rows x 8 columns x 8 k, the first k a multiply) into fresh partials and
+// adds those to the thread's running float32 sums, 32 adds: 320 FP32
+// instructions for 256 fmaf. K is split across threads and CTAs: a CTA of
+// 128 threads takes 128 consecutive chunks (1024 of K) of one 4 x 8 tile,
+// so M = 16, N = 128, K = 2048 gives 128 CTAs and N = 640 gives 640. After
+// the loop a warp's xor butterfly adds its 32 chunks, the CTA adds its 4
+// warps in order into split_out[s] (s the CTA's 1024-wide part of K), and a
+// second launch adds the K / 1024 parts in order (no atomics).
+constexpr int kFmRows = 4, kFmCols = 8, kFmK = 8, kFmThreads = 128;
+constexpr int kFmKCta = kFmK * kFmThreads;  // 1024
 
-__global__ void __launch_bounds__(kFfmaThreads) ffma_kernel(const float* __restrict__ a,
-                                                            const float* __restrict__ v,
-                                                            float* __restrict__ out, int K, int N,
-                                                            int iters) {
-  extern __shared__ __align__(16) float fs[];
-  float* as = fs;                  // [kFfmaRows][K]
-  float* vs = fs + kFfmaRows * K;  // [kFfmaCols][K], v transposed
-  const int r0 = blockIdx.y * kFfmaRows, n0 = blockIdx.x * kFfmaCols;
-  for (int j = threadIdx.x; j < kFfmaRows * K; j += kFfmaThreads) as[j] = a[static_cast<int64_t>(r0) * K + j];
-  for (int j = threadIdx.x; j < kFfmaCols * K; j += kFfmaThreads) {
-    const int c = j % kFfmaCols, k = j / kFfmaCols;
-    vs[c * K + k] = v[static_cast<int64_t>(k) * N + n0 + c];
-  }
-  __syncthreads();
+__global__ void __launch_bounds__(kFmThreads) ffma_kernel(const float* __restrict__ a,
+                                                          const float* __restrict__ v,
+                                                          float* __restrict__ split_out, int M,
+                                                          int K, int N, int iters) {
+  const int r0 = blockIdx.y * kFmRows, c0 = blockIdx.x * kFmCols, s = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = 2 * (warp / (kFfmaCols / 2)), c = 2 * (warp % (kFfmaCols / 2));
-  const float4* a0 = reinterpret_cast<const float4*>(as + r * K) + lane;
-  const float4* a1 = reinterpret_cast<const float4*>(as + (r + 1) * K) + lane;
-  const float4* v0 = reinterpret_cast<const float4*>(vs + c * K) + lane;
-  const float4* v1 = reinterpret_cast<const float4*>(vs + (c + 1) * K) + lane;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  const int k0 = s * kFmKCta + threadIdx.x * kFmK;
+  float av[kFmRows][kFmK], vv[kFmK][kFmCols];
+#pragma unroll
+  for (int r = 0; r < kFmRows; ++r)
+#pragma unroll
+    for (int h = 0; h < kFmK; h += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(a + static_cast<int64_t>(r0 + r) * K + k0 + h);
+      av[r][h] = q.x;
+      av[r][h + 1] = q.y;
+      av[r][h + 2] = q.z;
+      av[r][h + 3] = q.w;
+    }
+#pragma unroll
+  for (int kk = 0; kk < kFmK; ++kk)
+#pragma unroll
+    for (int h = 0; h < kFmCols; h += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(v + static_cast<int64_t>(k0 + kk) * N + c0 + h);
+      vv[kk][h] = q.x;
+      vv[kk][h + 1] = q.y;
+      vv[kk][h + 2] = q.z;
+      vv[kk][h + 3] = q.w;
+    }
+  float acc[kFmRows][kFmCols];
+#pragma unroll
+  for (int r = 0; r < kFmRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kFmCols; ++c) acc[r][c] = 0.0f;
+
   for (int i = 0; i < iters; ++i) {
     const float fi = static_cast<float>(i);
-    float s[2][2][4];
+    float p[kFmRows][kFmCols];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int kk = 0; kk < kFmK; ++kk) {
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int r = 0; r < kFmRows; ++r) {
+        const float ap = av[r][kk] + fi;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[m][n][e] = 0.0f;
-#pragma unroll 2
-    for (int q = 0; q < K / 128; ++q) {
-      const float4 x[2] = {a0[32 * q], a1[32 * q]}, y[2] = {v0[32 * q], v1[32 * q]};
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const float p0 = x[m].x + fi, p1 = x[m].y + fi, p2 = x[m].z + fi, p3 = x[m].w + fi;
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          s[m][n][0] = fmaf(p0, y[n].x, s[m][n][0]);
-          s[m][n][1] = fmaf(p1, y[n].y, s[m][n][1]);
-          s[m][n][2] = fmaf(p2, y[n].z, s[m][n][2]);
-          s[m][n][3] = fmaf(p3, y[n].w, s[m][n][3]);
-        }
+        for (int c = 0; c < kFmCols; ++c) p[r][c] = kk == 0 ? ap * vv[0][c] : fmaf(ap, vv[kk][c], p[r][c]);
       }
     }
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int r = 0; r < kFmRows; ++r)
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
-        acc[m][n] = acc[m][n] + warp_sum((s[m][n][0] + s[m][n][1]) + (s[m][n][2] + s[m][n][3]));
+      for (int c = 0; c < kFmCols; ++c) acc[r][c] = acc[r][c] + p[r][c];
   }
-  if (lane == 0) {
+
+  __shared__ float warp_sums[kFmThreads / 32][kFmRows * kFmCols];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+  for (int r = 0; r < kFmRows; ++r)
 #pragma unroll
-      for (int n = 0; n < 2; ++n) out[static_cast<int64_t>(r0 + r + m) * N + n0 + c + n] = acc[m][n];
+    for (int c = 0; c < kFmCols; ++c) {
+      const float w = warp_sum(acc[r][c]);
+      if (lane == 0) warp_sums[warp][r * kFmCols + c] = w;
+    }
+  __syncthreads();
+  if (threadIdx.x < kFmRows * kFmCols) {
+    const int e = threadIdx.x;
+    float t = warp_sums[0][e];
+#pragma unroll
+    for (int w = 1; w < kFmThreads / 32; ++w) t = t + warp_sums[w][e];
+    split_out[(static_cast<int64_t>(s) * M + r0 + e / kFmCols) * N + c0 + e % kFmCols] = t;
   }
 }
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// out[e] = sum_{s < S} split_out[s][e], s in order.
+__global__ void __launch_bounds__(kThreads) split_sum_kernel(const float* __restrict__ split_out,
+                                                             float* __restrict__ out, int n, int S) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float t = split_out[e];
+  for (int s = 1; s < S; ++s) t = t + split_out[static_cast<int64_t>(s) * n + e];
+  out[e] = t;
+}
+
+// The bfloat16 product's tile width for N: 80 where N is a multiple of 80,
+// else 32 (0: N is neither).
+int mma_cols(int N) { return N % kMmaWide == 0 ? kMmaWide : (N % kMmaNarrow == 0 ? kMmaNarrow : 0); }
+
+size_t mma_smem_bytes(int nt) { return static_cast<size_t>(nt) * kMmaK * sizeof(__nv_bfloat16); }
+
+const void* mma_kernel(int nt) {
+  return nt == kMmaWide ? reinterpret_cast<const void*>(wgmma_bf16_kernel<kMmaWide>)
+                        : reinterpret_cast<const void*>(wgmma_bf16_kernel<kMmaNarrow>);
 }
 
 }  // namespace
@@ -547,7 +670,7 @@ extern "C" int o3dt_probe_reduce(const void* x, const void* idx, void* out, int 
   } else if (kind == 1 && cols == 5 * kLanes) {
     segment_kernel<<<(rows + 7) / 8, kThreads, 0, s>>>(xf, of, rows, iters);
   } else if (kind == 2 && cols == kLanes && rows % kLanes == 0) {
-    sublane_kernel<<<dim3(kLanes / kSubCols, rows / kLanes), 32, 0, s>>>(xf, of, iters);
+    sublane_kernel<<<dim3(kLanes / kSubColsCta, rows / kLanes), kSubThreads, 0, s>>>(xf, of, iters);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -563,30 +686,68 @@ extern "C" int o3dt_probe_onehot(const void* idx, void* out, int rows, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (M, K), b (K, N) bfloat16 -> out (M, N) float32; M % 64, N % 32, K % 16 == 0.
+// a (M, 128), b (128, N) bfloat16 -> out (M, N) float32; M % 64 == 0 and N a
+// multiple of 80 or of 32.
 extern "C" int o3dt_probe_mma_bf16(const void* a, const void* b, void* out, int M, int K, int N,
                                    int iters, void* stream) {
-  if (M % kMmaRows != 0 || N % kMmaCols != 0 || K % 16 != 0 || K <= 0) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kMmaRows + kMmaCols) * (K + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(mma_bf16_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mma_bf16_kernel<<<dim3(N / kMmaCols, M / kMmaRows), kMmaThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<float*>(out), K, N, iters);
+  const int nt = mma_cols(N);
+  if (M % kMmaRows != 0 || M <= 0 || K != kMmaK || nt == 0) return cudaErrorInvalidValue;
+  const dim3 grid(N / nt, M / kMmaRows);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* af = static_cast<const __nv_bfloat16*>(a);
+  const auto* bf = static_cast<const __nv_bfloat16*>(b);
+  auto* of = static_cast<float*>(out);
+  if (nt == kMmaWide) {
+    wgmma_bf16_kernel<kMmaWide><<<grid, kMmaThreads, mma_smem_bytes(nt), s>>>(af, bf, of, N, iters);
+  } else {
+    wgmma_bf16_kernel<kMmaNarrow><<<grid, kMmaThreads, mma_smem_bytes(nt), s>>>(af, bf, of, N, iters);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (M, K), v (K, N) float32 -> out (M, N) float32; M % 4, N % 4, K % 128 == 0.
-extern "C" int o3dt_probe_ffma(const void* a, const void* v, void* out, int M, int K, int N,
-                               int iters, void* stream) {
-  if (M % kFfmaRows != 0 || N % kFfmaCols != 0 || K % 128 != 0 || K <= 0) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kFfmaRows + kFfmaCols) * K * sizeof(float);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(ffma_kernel), smem);
+// a (M, K), v (K, N) float32 -> out (M, N) float32, through split_out
+// (K / 1024, M, N) float32 scratch; M % 4, N % 8, K % 1024 == 0.
+extern "C" int o3dt_probe_ffma(const void* a, const void* v, void* split_out, void* out, int M,
+                               int K, int N, int iters, void* stream) {
+  if (M % kFmRows != 0 || N % kFmCols != 0 || K % kFmKCta != 0 || M <= 0 || N <= 0 || K <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* so = static_cast<float*>(split_out);
+  ffma_kernel<<<dim3(N / kFmCols, M / kFmRows, K / kFmKCta), kFmThreads, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(v), so, M, K, N, iters);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffma_kernel<<<dim3(N / kFfmaCols, M / kFfmaRows), kFfmaThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(v), static_cast<float*>(out), K, N,
-      iters);
+  split_sum_kernel<<<(M * N + kThreads - 1) / kThreads, kThreads, 0, s>>>(so, static_cast<float*>(out),
+                                                                          M * N, K / kFmKCta);
   return static_cast<int>(cudaGetLastError());
+}
+
+// family 0: the bfloat16 product at width N; 1: the float32 product. out[0]
+// CTAs a multiprocessor, out[1] multiprocessors, out[2] threads a CTA,
+// out[3] registers a thread.
+extern "C" int o3dt_probe_occupancy(int family, int N, int* out) {
+  const void* kernel = reinterpret_cast<const void*>(ffma_kernel);
+  size_t smem = 0;
+  int threads = kFmThreads;
+  if (family == 0) {
+    const int nt = mma_cols(N);
+    if (nt == 0) return cudaErrorInvalidValue;
+    kernel = mma_kernel(nt);
+    smem = mma_smem_bytes(nt);
+    threads = kMmaThreads;
+  } else if (family != 1) {
+    return cudaErrorInvalidValue;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[2] = threads;
+  out[3] = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem));
 }

@@ -163,12 +163,20 @@ def render_sequence(
     n_frames: int,
     intrinsic: Optional[PinholeCameraIntrinsic] = None,
     sdf: Callable = default_scene_sdf,
+    depth_noise: float = 0.0,
+    key: Optional[torch.Generator] = None,
     device=None,
     **traj_kwargs,
 ):
     """Render an RGB-D sequence with ground-truth world -> camera poses.
     Returns (depths (F, H, W), colors (F, H, W, 3), extrinsics (F, 4, 4),
-    intrinsic), all on `device` (default: the card)."""
+    intrinsic), all on `device` (default: the card).
+
+    With `depth_noise` > 0 and a generator `key` (on `device`), each frame's
+    valid depth becomes d + depth_noise * d * n, n a standard normal drawn
+    from `key` (one (H, W) draw a frame, in frame order), and invalid depth
+    stays 0, as in the reference. The draws are not JAX's: a test that
+    compares bits draws the normals from the same generator itself."""
     dev = default_device(device)
     if intrinsic is None:
         intrinsic = PinholeCameraIntrinsic(160, 120, 131.25, 131.25, 79.5, 59.5)
@@ -176,6 +184,10 @@ def render_sequence(
     depths, colors = [], []
     for i in range(n_frames):
         d, c = render_depth(sdf, intrinsic, extr[i])
+        if depth_noise > 0.0 and key is not None:
+            noise = depth_noise * d * torch.randn(d.shape, generator=key, device=d.device,
+                                                  dtype=d.dtype)
+            d = torch.where(d > 0, d + noise, torch.zeros_like(d))
         depths.append(d)
         colors.append(c)
     return torch.stack(depths), torch.stack(colors), extr, intrinsic

@@ -22,8 +22,14 @@ class PinholeCameraIntrinsic:
     cx: float
     cy: float
 
-    def intrinsic_matrix(self, device=None) -> torch.Tensor:
-        """The 3x3 matrix, on the card unless `device` names another."""
+    @property
+    def intrinsic_matrix(self) -> torch.Tensor:
+        """The 3x3 matrix on the card (`core.platform.default_device`), read
+        as an attribute, as the reference's callers read it."""
+        return self.intrinsic_matrix_on(None)
+
+    def intrinsic_matrix_on(self, device) -> torch.Tensor:
+        """The 3x3 matrix on `device` (the card when None)."""
         return torch.tensor(
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
             dtype=torch.float32,

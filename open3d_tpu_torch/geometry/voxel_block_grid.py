@@ -251,6 +251,8 @@ def integrate(
     depth_max: float = 3.0,
     depth_scale: float = 1.0,
     weight_max: float = 10000.0,
+    use_pallas: Optional[bool] = None,
+    fallback_capacity: int = 16,
 ) -> VoxelBlockGrid:
     """Fuse one depth (+colour) frame: activate the blocks, then one kernel
     pass over all M of them (blocks that could not be activated go to the
@@ -258,7 +260,18 @@ def integrate(
 
     depth is metric float32 (or raw with `depth_scale`); extrinsic is
     world -> camera. `vbg.tw` and `vbg.color` are updated in place; the
-    returned grid carries the new table."""
+    returned grid carries the new table.
+
+    `use_pallas` picks the reference's TPU kernel or its XLA path. The port
+    has one path, its kernel (K1, K4 or K3, by the grid's block size;
+    their plain versions on CPU tensors), so None and True select it and
+    False, which asks for another path, raises. `fallback_capacity` sizes
+    the reference's second pass for blocks outside its slab windows, a TPU
+    workaround the kernel does not need: it is ignored."""
+    if use_pallas is False:
+        raise NotImplementedError(
+            "integrate: the port has no XLA-style path; use_pallas=False cannot be honoured"
+        )
     C = vbg.capacity
     table, slot, ok = hm.activate(vbg.table, block_keys)
     rows = torch.where(ok, slot, C).to(torch.int32).contiguous()
@@ -330,17 +343,32 @@ def raycast(
     extrinsic: torch.Tensor,
     depth_min: float = 0.1,
     depth_max: float = 3.0,
+    max_steps: int = 96,
     with_color: bool = True,
     with_normals: bool = False,
     with_index_ratio: bool = False,
+    use_range_map: bool = True,
+    max_probes: int = 8,
+    use_pallas: Optional[bool] = None,
 ) -> RaycastResult:
     """Render the depth and vertex maps by the tile march (the JAX
     package's `_raycast_pallas` path, taken on every device here): per-tile
     candidate lists, the march kernel for depth, then vertex and mask.
 
-    The JAX package's `max_steps` belongs to its XLA sphere trace, which is
-    not ported; the march has no step count, so it takes none. Colour,
-    normal and index/ratio maps are not ported yet and raise."""
+    The parameters the reference reads only on its XLA sphere trace
+    (ROADMAP §1 item 5, not ported) are accepted and ignored, as the
+    reference's own tile march ignores them: `max_steps` (the trace's step
+    count; the march walks every candidate block), `use_range_map` (the
+    trace's per-tile depth bounds; the march's candidate lists are its
+    range) and `max_probes` (the trace's hash probes a sample; the march
+    reads rows the lists resolved). `use_pallas` None or True selects the
+    march (the CUDA kernel on the card, its plain version on CPU
+    tensors); False asks for the sphere trace and raises. Colour, normal
+    and index/ratio maps are not ported yet and raise."""
+    if use_pallas is False:
+        raise NotImplementedError(
+            "raycast: the XLA sphere trace (use_pallas=False) is not ported yet"
+        )
     if with_normals or with_index_ratio or (with_color and vbg.has_color):
         raise NotImplementedError(
             "raycast colour, normal and index/ratio maps are not ported yet"

@@ -108,6 +108,7 @@ def synthesize_model_frame(model: SLAMModel, intrinsic: PinholeCameraIntrinsic):
         extrinsic,
         depth_min=cfg.depth_min,
         depth_max=cfg.depth_max,
+        max_steps=cfg.raycast_max_steps,
         with_color=cfg.with_color and cfg.raycast_color,
         with_normals=cfg.raycast_normals,
     )

@@ -163,10 +163,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_probe_reduce.restype = I
     lib.o3dt_probe_onehot.argtypes = [P, P, I, I, I, P]  # idx, out, rows, cols, iters
     lib.o3dt_probe_onehot.restype = I
-    for name in ("o3dt_probe_mma_bf16", "o3dt_probe_ffma"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, I, I, I, I, P]  # a, b, out, M, K, N, iters
-        fn.restype = I
+    lib.o3dt_probe_mma_bf16.argtypes = [P, P, P, I, I, I, I, P]  # a, b, out, M, K, N, iters
+    lib.o3dt_probe_mma_bf16.restype = I
+    lib.o3dt_probe_ffma.argtypes = [P, P, P, P, I, I, I, I, P]  # a, v, split_out, out, M, K, N, iters
+    lib.o3dt_probe_ffma.restype = I
+    lib.o3dt_probe_occupancy.argtypes = [I, I, P]  # family (0 bf16, 1 f32), N, int[4] out
+    lib.o3dt_probe_occupancy.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

@@ -177,13 +177,15 @@ def global_optimization(
     option: GlobalOptimizationOption = GlobalOptimizationOption(),
     criteria: GlobalOptimizationConvergenceCriteria = GlobalOptimizationConvergenceCriteria(),
     mesh=None,
+    mesh_axis: str = "edges",
 ) -> PoseGraph:
     """Robust LM pose-graph optimisation with line-process edge weights,
     then pruning of loop closures whose confidence falls below
     `option.edge_prune_threshold`.
 
     `mesh` (the JAX package's edge-sharded PCG solve) is not ported and
-    raises."""
+    raises; `mesh_axis` names the mesh axis the edges are sharded over, so
+    it is read only with a mesh and is ignored here."""
     if mesh is not None:
         raise NotImplementedError("the distributed pose-graph solve is not ported yet")
     # mu = preference * dmax^2 * mean(info[5, 5]) over the live edges
@@ -231,10 +233,11 @@ def global_optimization_two_pass(
     option: GlobalOptimizationOption = GlobalOptimizationOption(),
     criteria: GlobalOptimizationConvergenceCriteria = GlobalOptimizationConvergenceCriteria(),
     mesh=None,
+    mesh_axis: str = "edges",
 ) -> PoseGraph:
     """Optimise, prune the invalid loop closures, optimise again."""
-    g1 = global_optimization(graph, option, criteria, mesh=mesh)
-    return global_optimization(g1, option, criteria, mesh=mesh)
+    g1 = global_optimization(graph, option, criteria, mesh=mesh, mesh_axis=mesh_axis)
+    return global_optimization(g1, option, criteria, mesh=mesh, mesh_axis=mesh_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -269,3 +269,87 @@ def test_micro_primitives_kernel_matches_plain(cuda, name):
         assert torch.equal(out, ref)
     else:
         assert p1.rel_err(out, ref) <= p1.tolerance(probe)
+
+
+REDESIGNED = ("segreduce 5x(2048,128)->(2048,5)", "reshape3d+subreduce (2048,128)",
+              "matmul bf16 (2048,128)@(128,640)", "matmul bf16 (2048,128)@(128,128)",
+              "matmul f32 (16,2048)@(2048,640)", "matmul f32 (16,2048)@(2048,128)")
+
+
+@pytest.mark.parametrize("iters", [0, 1, 50, 1000])
+@pytest.mark.parametrize("name", REDESIGNED)
+def test_redesigned_probes_match_plain(cuda, name, iters):
+    """The wgmma and register-blocked products and the two reductions that
+    keep partials across the iterations, at several repeat counts: the
+    reductions bit for bit (the plain sums take their order), the products
+    within tolerance()."""
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    probe = p1.BY_NAME[name]
+    ins = p1.make_inputs(probe, torch.Generator(device=cuda).manual_seed(5), cuda)
+    out = p1.run_probe(probe, ins, iters)
+    torch.cuda.synchronize()
+    ref = p1.probe_plain(probe, ins, iters)
+    if iters == 0:
+        assert not bool(out.any())
+    elif probe.family == "reduce":
+        assert torch.equal(out, ref)
+    else:
+        assert p1.rel_err(out, ref) <= p1.tolerance(probe)
+
+
+@pytest.mark.parametrize("name", ["matmul bf16 (2048,128)@(128,640)",
+                                  "matmul bf16 (2048,128)@(128,128)"])
+def test_bf16_product_at_the_largest_index(cuda, name):
+    """At ITERS_HI the bfloat16 product meets i up to 8999 (a + bf16(i)
+    near 9024) and sums about 80 times larger than at ITERS_LO: each
+    iteration's products still start from zero on the tensor cores and are
+    added in float32 with rounding, so the error stays within the bar set
+    at ITERS_LO."""
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+
+    probe = p1.BY_NAME[name]
+    ins = p1.make_inputs(probe, torch.Generator(device=cuda).manual_seed(6), cuda)
+    out = p1.run_probe(probe, ins, p1.ITERS_HI)
+    torch.cuda.synchronize()
+    assert p1.rel_err(out, p1.probe_plain(probe, ins, p1.ITERS_HI)) <= p1.tolerance(probe)
+
+
+@pytest.mark.parametrize("family,M,K,N", [
+    ("mma_bf16", 128, 128, 96), ("mma_bf16", 64, 128, 80), ("ffma", 8, 1024, 24),
+    ("ffma", 4, 3072, 8),
+])
+def test_product_kernels_at_other_tiles(cuda, family, M, K, N):
+    """Shapes that take the other bfloat16 tile width, one or three parts
+    of K, and a grid of a few CTAs."""
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((K, N), generator=gen, device=cuda).to(dtype)
+    out = p1.product(family, a, b, 20)
+    ref = p1.product(family, a.cpu(), b.cpu(), 20)
+    torch.cuda.synchronize()
+    tol = 1e-4 if family == "mma_bf16" else 1e-5
+    assert p1.rel_err(out.cpu(), ref) <= tol
+
+
+@pytest.mark.parametrize("family,M,K,N", [("mma_bf16", 64, 128, 80), ("ffma", 4, 1024, 8)])
+def test_product_refuses_a_misaligned_base_on_the_card(cuda, family, M, K, N):
+    """A contiguous view one element into its storage raises ValueError
+    before any launch, and the card goes on running the kernel."""
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+
+    dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
+    a = torch.zeros(M * K + 1, dtype=dtype, device=cuda)[1:].view(M, K)
+    b = torch.zeros((K, N), dtype=dtype, device=cuda)
+    count = p1.run_probe.launches
+    with pytest.raises(ValueError, match="aligned"):
+        p1.product(family, a, b, 1)
+    assert p1.run_probe.launches == count
+    out = p1.product(family, a.clone(), b, 1)
+    torch.cuda.synchronize()
+    assert not bool(out.any())

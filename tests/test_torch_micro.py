@@ -194,3 +194,45 @@ def test_probe_ops_counts():
     assert p1.instance_ops(by["take_along 1col (2048,128)"]) == 2 * 2048
     assert p1.instance_ops(by["maskmul+lanereduce (2048,128)"]) == 2 * 2048
     assert p1.instance_ops(by["bcast lane->sub (32,128)->(32,128,128)"]) == 32 * 128 + 32 * 128 * 128
+
+
+@pytest.mark.parametrize("name", ["segreduce 5x(2048,128)->(2048,5)",
+                                  "reshape3d+subreduce (2048,128)"])
+def test_reduction_twins_take_the_kernels_order(name):
+    """The segment and sublane plain versions add in the order their
+    kernels do (csrc/micro_primitives.cu), modelled here thread by thread in
+    numpy float32: each thread's partials run over the iterations first,
+    then the lanes or row groups are added by the xor butterfly. On the
+    card that order is what makes the kernels bit-exact with the plain
+    versions."""
+    probe = p1.BY_NAME[name]
+    x = np.random.default_rng(9).standard_normal(probe.inputs[0][0]).astype(np.float32)
+    iters = 4
+
+    def butterfly(v):  # lane 0 of an xor butterfly over the last axis
+        while v.shape[-1] > 1:
+            h = v.shape[-1] // 2
+            v = v[..., :h] + v[..., h:]
+        return v[..., 0]
+
+    if probe.kind == "segment":
+        # lane l of row r: four values x[r][128 p + l + 32 q] a segment p
+        v = x.reshape(x.shape[0], 5, 4, 32)
+        acc = np.zeros((x.shape[0], 5, 32), np.float32)
+        for i in range(iters):
+            fi = np.float32(i)
+            acc = acc + ((((v[:, :, 0] + fi) + (v[:, :, 1] + fi)) + (v[:, :, 2] + fi))
+                         + (v[:, :, 3] + fi))
+        expect = butterfly(acc)
+    else:
+        # thread (slab a, group g, column c): rows 128 a + 16 g + j, j < 16
+        v = x.reshape(16, 8, 16, 128)
+        part = np.zeros_like(v)
+        for i in range(iters):
+            part = part + (v + np.float32(i))
+        t = part[:, :, 0]
+        for j in range(1, 16):
+            t = t + part[:, :, j]
+        expect = butterfly(np.moveaxis(t, 1, 2))
+    out = p1.run_probe(probe, [_t(x)], iters)  # CPU tensors: the plain version
+    np.testing.assert_array_equal(out.numpy(), expect)

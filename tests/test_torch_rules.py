@@ -98,13 +98,17 @@ def test_factories_raise_without_cuda(monkeypatch):
     intr = PinholeCameraIntrinsic(16, 12, 10.0, 10.0, 8.0, 6.0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda **kw: hm.make_table(8, **kw), lambda **kw: hm.empty_keys((3, 4), **kw),
-                 lambda **kw: intr.intrinsic_matrix(**kw)):
+                 lambda **kw: intr.intrinsic_matrix_on(kw.get("device"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
         assert make(device="cpu").device.type == "cpu"
+    # the property, read as the reference's callers read it, is on the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        intr.intrinsic_matrix
+    assert not callable(type(intr).__dict__["intrinsic_matrix"])
     assert tuple(hm.make_table(8, device="cpu").shape) == (8, 2)
     assert tuple(hm.empty_keys(5, device="cpu").shape) == (5, 2)
-    assert float(intr.intrinsic_matrix(device="cpu")[0, 2]) == 8.0
+    assert float(intr.intrinsic_matrix_on("cpu")[0, 2]) == 8.0
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -390,6 +394,71 @@ def test_micro_primitives_wrapper_accepts_good_inputs():
     assert torch.equal(out, expect)
 
 
+@pytest.mark.parametrize("family,M,K,N", [
+    ("mma_bf16", 32, 128, 128),  # M not a multiple of 64 (a warpgroup's rows)
+    ("mma_bf16", 64, 64, 128),  # K not 128 (A stays in registers at K = 128)
+    ("mma_bf16", 64, 256, 128),
+    ("mma_bf16", 64, 128, 100),  # N a multiple of neither 80 nor 32
+    ("ffma", 6, 1024, 8),  # M not a multiple of 4
+    ("ffma", 4, 1024, 12),  # N not a multiple of 8
+    ("ffma", 4, 2000, 8),  # K not a multiple of 1024
+])
+def test_product_wrapper_refuses_shapes_the_tiles_cannot_take(family, M, K, N):
+    dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
+    a, b = torch.zeros((M, K), dtype=dtype), torch.zeros((K, N), dtype=dtype)
+    with pytest.raises(ValueError, match="tiles"):
+        p1.product(family, a, b, 1)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda a, b: (a.float(), b),  # the bfloat16 kernel takes bfloat16
+    lambda a, b: (a, b[:64].contiguous()),  # inner sizes differ
+    lambda a, b: (a, b.t().contiguous().t()),  # non-contiguous
+])
+def test_product_wrapper_refuses_bad_inputs(bad):
+    a, b = torch.zeros((64, 128), dtype=torch.bfloat16), torch.zeros((128, 80), dtype=torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        p1.product("mma_bf16", *bad(a, b), 1)
+
+
+def _offset_view(shape, dtype):
+    """A contiguous (rows, cols) view one element past a fresh allocation."""
+    n = shape[0] * shape[1]
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("family,M,K,N,which", [
+    ("mma_bf16", 64, 128, 80, "a"),  # a read as 4-byte words
+    ("ffma", 4, 1024, 8, "a"),  # a and b read as 16-byte words
+    ("ffma", 4, 1024, 8, "b"),
+])
+def test_product_wrapper_refuses_misaligned_bases(family, M, K, N, which):
+    dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
+    a, b = torch.zeros((M, K), dtype=dtype), torch.zeros((K, N), dtype=dtype)
+    if which == "a":
+        a = _offset_view((M, K), dtype)
+    else:
+        b = _offset_view((K, N), dtype)
+    assert a.is_contiguous() and b.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        p1.product(family, a, b, 1)
+
+
+@pytest.mark.parametrize("family,M,K,N", [
+    ("mma_bf16", 64, 128, 80), ("mma_bf16", 128, 128, 96), ("ffma", 4, 1024, 8),
+    ("ffma", 8, 2048, 16),
+])
+def test_product_wrapper_accepts_what_the_tiles_take(family, M, K, N):
+    dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn((M, K), generator=gen).to(dtype)
+    b = torch.randn((K, N), generator=gen).to(dtype)
+    out = p1.product(family, a, b, 3)  # CPU tensors: the plain sum
+    expect = sum(((a + torch.tensor(float(i)).to(dtype)).double() @ b.double()) for i in range(3))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (M, N)
+    assert float((out.double() - expect).abs().max() / expect.abs().max()) < 1e-6
+
+
 @pytest.mark.parametrize("mod", [p1, p2, p3], ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_entry_points_raise_without_cuda(monkeypatch, mod):
     """python -m open3d_tpu_torch.ops.kernels.<probe> measures the card or
@@ -411,3 +480,125 @@ def test_probe_wrappers_refuse_indices_out_of_range():
     probe, (x, idx1) = _p1_case()
     with pytest.raises(ValueError, match="index"):
         p1.run_probe(probe, [x, torch.full_like(idx1, 128)], 1)
+
+
+# ---- public names and signatures against the reference ---------------------
+
+# Names the reference has and the port still lacks, each with the item of
+# ROADMAP.md §1 that queues it. Nothing else may be missing.
+QUEUED = {
+    "core.hashmap": {"active_slots": 3, "erase": 3, "resize": 3},
+    "core.linalg": {"eigh3x3": 3, "solve3x3": 3},
+    "core.masking": {"masked_max": 3, "masked_mean": 3, "masked_min": 3, "pad_axis0": 3,
+                     "round_up": 3},
+    "data.synthetic": {"sample_surface": 3},
+    "geometry.camera": {"PinholeCameraParameters": 3, "PinholeCameraTrajectory": 3,
+                        "PinholeCameraIntrinsic.from_matrix": 3},
+    "geometry.image": {"colorize_depth": 3, "dilate": 3, "filter_sobel": 3,
+                       "linear_transform": 3},
+    "geometry.pointcloud": {f"PointCloud.{m}": 3 for m in (
+        "transform", "translate", "rotate", "scale", "get_min_bound", "get_max_bound",
+        "get_center", "select_by_mask", "crop")},
+    "geometry.rgbd": {"pointcloud_from_depth": 3, "pointcloud_from_rgbd": 3,
+                      "project_to_rgbd": 3},
+    "geometry.voxel_block_grid": {"BlockIndex": 5, "build_block_index": 5, "estimate_range": 5,
+                                  "extract_triangle_mesh": 7},
+    "io": {"read_voxel_block_grid": 3, "write_voxel_block_grid": 3, "read_pose_graph": 3,
+           "write_pose_graph": 3, "read_triangle_mesh": 3, "write_triangle_mesh": 3},
+    "pipelines.reconstruction": {"register_fragments": 9, "refine_registration": 9,
+                                 "integrate_scene": 9, "run_system": 9, "extract_scene_mesh": 9},
+}
+# The port's modules with no module at the same path in the reference: the
+# numpy interchange, and the kernel layer that replaces ops/pallas/
+PORT_ONLY = ("convert", "ops.kernels")
+
+
+def _port_modules():
+    import pkgutil
+
+    return sorted(m.name[len("open3d_tpu_torch."):] for m in
+                  pkgutil.walk_packages(open3d_tpu_torch.__path__, "open3d_tpu_torch."))
+
+
+def _public(mod) -> dict:
+    """The module's own public functions and classes, and each class's
+    public methods and properties as "Class.name"."""
+    import inspect
+
+    out = {}
+    for k, v in vars(mod).items():
+        if k.startswith("_") or getattr(v, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isfunction(v):
+            out[k] = v
+        elif inspect.isclass(v):
+            out[k] = v
+            for mk, mv in vars(v).items():
+                if not mk.startswith("_") and (inspect.isfunction(mv) or isinstance(
+                        mv, (staticmethod, classmethod, property))):
+                    out[f"{k}.{mk}"] = mv
+    return out
+
+
+def _default(d):
+    """A default as the two packages can share it: a plain value as it is,
+    a dataclass instance (an option record) by its repr, a tuple element by
+    element, anything else (an array, a function) by its type's name."""
+    import dataclasses
+
+    if isinstance(d, (bool, int, float, str, type(None))):
+        return d
+    if isinstance(d, tuple):
+        return tuple(_default(x) for x in d)
+    if dataclasses.is_dataclass(d) and not isinstance(d, type):
+        return repr(d)
+    return type(d).__name__
+
+
+def _params(obj) -> list:
+    """(name, kind, default) of each parameter, the port's added `device`
+    keyword left out."""
+    import inspect
+
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    return [(p.name, p.kind, _default(p.default))
+            for p in inspect.signature(obj).parameters.values() if p.name != "device"]
+
+
+@pytest.mark.parametrize("name", [m for m in _port_modules()
+                                  if not any(m == s or m.startswith(s + ".") for s in PORT_ONLY)])
+def test_public_signatures_match_the_reference(name):
+    """Every public function, class, method and property of the reference's
+    module exists in the port's module of the same path, of the same kind,
+    with the same parameter names, kinds and plain defaults in the same
+    order; the port may add a `device` keyword. The reference's names the
+    port still lacks are the ones ROADMAP.md §1 queues (QUEUED)."""
+    import importlib
+    import inspect
+
+    port = importlib.import_module(f"open3d_tpu_torch.{name}")
+    ref = importlib.import_module(f"open3d_tpu.{name}")
+    P, R = _public(port), _public(ref)
+    queued = QUEUED.get(name, {})
+    missing = sorted(set(R) - set(P))
+    assert missing == sorted(queued), f"missing {missing}, queued {sorted(queued)}"
+    for k in sorted(set(R) & set(P)):
+        a, b = P[k], R[k]
+        assert type(a) is type(b) or (inspect.isclass(a) and inspect.isclass(b)), (
+            f"{k}: {type(a).__name__} in the port, {type(b).__name__} in the reference")
+        if isinstance(b, property):
+            continue
+        assert _params(a) == _params(b), f"{k}: {_params(a)} != {_params(b)}"
+        f = a.__func__ if isinstance(a, (staticmethod, classmethod)) else a
+        added = inspect.signature(f).parameters.get("device")
+        assert added is None or added.default is None, f"{k}: device defaults to the card"
+
+
+def test_port_only_modules_have_no_reference_twin():
+    import importlib
+
+    for name in _port_modules():
+        if any(name == s or name.startswith(s + ".") for s in PORT_ONLY):
+            with pytest.raises(ImportError):
+                importlib.import_module(f"open3d_tpu.{name}")
