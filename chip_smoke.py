@@ -47,7 +47,15 @@ Phases:
      P1 at 1000 and 9000 repeats, counted like phase 5; each held against
      its plain version on those outputs, then timed beside its plain
      version and a PyTorch call that computes the same function (P2 with
-     its occupancy at each size).
+     its occupancy at each size);
+ 11. the raycast surface: the SLAM slice with raycast normals feeding
+     tracking over the bench orbit's frames 0-3 (K2 launches counted), then
+     every map at once (colour, TSDF-gradient normals, index/ratio) from
+     frame 3's pose, held against the same function on a CPU copy of the
+     grid and depth and against the synthetic truth; the sphere trace on
+     that 16^3 grid (against K2's depth and the truth) and on phase 8's
+     8^3 fragment grid (against the scene's SDF); each map's, each trace's
+     and the step's time with normals on and off.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -100,7 +108,19 @@ BIT_TOL = dict(weight_mismatch=0.0, max_abs_dtsdf=0.0, max_abs_dcolor=0.0)
 K2_TOL = dict(hit_agree=1.0, max_abs_dz=0.0)
 POSE_TOL = 0.05  # m and rad, tests/test_slam.py's gate
 P3_TOL = dict(hit_agree=1.0, max_abs_dz=1e-6)  # the staged-block march, target bit parity
+# Phase 11's bars against the synthetic truth at the SLAM configuration
+# (640x480, 3/512 m voxels): about twice what a CPU rehearsal of the phase
+# at that size read (PERF.md §2): the colour map's largest channel
+# error (0.0096 median, 0.0152 q90), the normal map's angle to the scene
+# SDF's gradient in degrees (0.81, 2.89), and the share of rays on which
+# the sphere trace and the march agree to hit (0.989)
+COLOR_TOL = dict(median=0.02, q90=0.04)
+NORMAL_TOL_DEG = dict(median=2.0, q90=6.0)
+TRACE_HIT_AGREE = 0.97
 PROBE_KERNELS = ("micro_gather", "micro_raymarch", "micro_primitives")
+# how a kernel's ms (warm, cold, floor) is read; the plain versions' and
+# the library calls' times are single readings
+MEDIAN_TIMES = "the median of 5 readings, each a mean over 20 launches; spread = largest - smallest"
 
 
 def log(msg: str) -> None:
@@ -317,7 +337,11 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
         prof = profile_steps(pair, 3, profile_dir, times["odometry_pair"], "odometry_pair")
         log("[9] profile of the odometry pair " + json.dumps(prof))
     return {"launches": launches, "fragment": frag, "times": times, "peak_bytes": peak_bytes,
-            "inside_ms": inside_ms, "k3": k3_out, "profile": prof}
+            "inside_ms": inside_ms, "k3": k3_out, "profile": prof,
+            # for phase 11: the 8^3 grid in frame 0's coordinates, the
+            # fragment poses (frame i -> frame 0) and frame 0's world pose
+            "grid": grid, "poses": graph.poses, "world_to_frame0": extr[0],
+            "depth_max": rcfg.depth_max, "voxel": vox}
 
 
 def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
@@ -364,7 +388,8 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
     out["max_abs_err"] = max(out["colour"]["max_abs_err"], out["no_colour"]["max_abs_err"])
     out["occupancy"] = {"colour": k3.occupancy(True, B3), "no_colour": k3.occupancy(False, B3)}
-    log(f"[9] K3 {out['ms']:.4f} ms warm, {out['cold_ms']:.4f} ms cold, launch floor "
+    log(f"[9] K3 {out['ms']:.4f} ms warm (spread {out['spread_ms']:.4f}), {out['cold_ms']:.4f} ms "
+        f"cold (spread {out['cold_spread_ms']:.4f}), launch floor "
         f"{out['floor_ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
         f"by {out['bound_by']} ({out['bytes']} B, {out['ops']} flop); {out['occupancy']}")
     return out
@@ -376,13 +401,15 @@ def k3_times(k3, tw, col, rows, tsdf_new, wn, cnew, C: int) -> dict:
     a list with nothing to fuse)."""
     import torch
 
-    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
 
     dump = torch.full_like(rows, C)
-    return {"ms": device_ms(lambda: k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew), reps=20),
-            "cold_ms": cold_ms(lambda: k3.fuse_blocks(tw, col, rows, tsdf_new, wn, cnew), reps=20),
-            "floor_ms": device_ms(lambda: k3.fuse_blocks(tw, col, dump, tsdf_new, wn, cnew),
-                                  reps=20)}
+    out = {}
+    for key, timer, r in (("ms", device_ms, rows), ("cold_ms", cold_ms, rows),
+                          ("floor_ms", device_ms, dump)):
+        out[key], out[key.replace("ms", "spread_ms")] = median_of(
+            lambda: timer(lambda: k3.fuse_blocks(tw, col, r, tsdf_new, wn, cnew), reps=20))
+    return out
 
 
 def kernels_only_k3_p2(dev) -> None:
@@ -471,7 +498,7 @@ def p2_row(p2, R: int, s_chunk: int, table, idx, out=None) -> dict:
     torch.take times, the bound, and the kernel's occupancy."""
     import torch
 
-    from open3d_tpu_torch.ops.kernels._timing import device_ms
+    from open3d_tpu_torch.ops.kernels._timing import device_ms, median_of
 
     if out is None:
         out = p2.gather(table, idx)
@@ -482,8 +509,9 @@ def p2_row(p2, R: int, s_chunk: int, table, idx, out=None) -> dict:
     n = idx.numel()
     b_ms, b_by = bound(p2.bytes_moved(R, n), 0)
     idx64 = idx.long()  # torch.take takes int64 indices only
+    ms, spread = median_of(lambda: device_ms(lambda: p2.gather(table, idx), reps=20))
     return {"R": R, "s_chunk": s_chunk, "indices": n, "max_abs_err": err,
-            "ms": device_ms(lambda: p2.gather(table, idx), reps=20),
+            "ms": ms, "spread_ms": spread,
             "plain_ms": device_ms(lambda: p2.gather_plain(table, idx), reps=5),
             "library_ms": device_ms(lambda: torch.take(table, idx64), reps=20),
             "bound_ms": b_ms, "bound_by": b_by, "occupancy": p2.occupancy(R)}
@@ -501,7 +529,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
     from open3d_tpu_torch.ops.kernels import micro_primitives as p1
     from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
-    from open3d_tpu_torch.ops.kernels._timing import device_ms
+    from open3d_tpu_torch.ops.kernels._timing import N_READINGS, device_ms, median_of
 
     t_start = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -537,9 +565,10 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
         "replaces": "scripts/micro_onehot_gather.py:49", "launches": launches["micro_gather"],
         "max_abs_err": max(r["max_abs_err"] for r in configs),
         "ms": total(configs, "ms"), "kernel_ms": total(configs, "ms"),
+        "spread_ms": total(configs, "spread_ms"),
         "plain_ms": total(configs, "plain_ms"), "bound_ms": total(configs, "bound_ms"),
         "bound_by": "bytes", "library_ms": total(configs, "library_ms"),
-        "library": "torch.take on int64 indices", "times": "sums over the three configurations",
+        "library": "torch.take on int64 indices", "times": "sums over the three configurations of " + MEDIAN_TIMES,
         "parity": {"bit_equal": True}, "tolerance": {"max_abs_err": 0.0}, "configs": configs,
     }
 
@@ -553,14 +582,15 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
           and par["hit_frac"] > 0.5, f"P3 against its plain version {par}")
     per_sm, sms = p3.occupancy()
     n_tiles = rows.shape[0]
+    p3_ms, p3_spread = median_of(lambda: device_ms(lambda: p3.march(rows, tw), reps=20))
     b_ms, b_by = bound(p3.bytes_moved(n_tiles), p3.ops(n_tiles))
     p3_entry = {
         "name": "micro_raymarch", "route": "cuda", "source": "open3d_tpu_torch/csrc/micro_raymarch.cu",
         "replaces": "scripts/micro_raymarch_kernel.py:87", "launches": launches["micro_raymarch"],
         "max_abs_err": par["max_abs_dz"],
-        "ms": device_ms(lambda: p3.march(rows, tw), reps=20),
+        "ms": p3_ms, "spread_ms": p3_spread,
         "plain_ms": device_ms(lambda: p3.march_plain(rows, tw), reps=2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "times": MEDIAN_TIMES,
         "library": "none: no PyTorch call marches rays through staged blocks",
         "parity": par, "tolerance": P3_TOL,
         "occupancy": {"ctas_per_sm": per_sm, "sms": sms,
@@ -607,7 +637,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
         "bound_ms": total(probes, "bound_ns") / 1e6, "bound_by": "operations",
         "library_ms": total(probes, "library_ns") / 1e6,
         "spread_ns": total(probes, "spread_ns"),
-        "times": f"one instance of each of the 17 probes, summed; each the median of {p1.N_SLOPES} slopes",
+        "times": f"one instance of each of the 17 probes, summed; each the median of {N_READINGS} slopes",
         "parity": {r["name"]: r["rel_err"] for r in probes},
         "tolerance": {r["name"]: r["tolerance"] for r in probes}, "probes": probes,
     }
@@ -623,6 +653,185 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     p1_entry["sass"] = sass
     log(f"[10] probes' phase {time.perf_counter() - t_start:.1f} s")
     return [p1_entry, p2_entry, p3_entry]
+
+
+def camera_facing(normal, hit, intr) -> float:
+    """The share of hits whose camera-frame normal faces the camera: its dot
+    with the pixel's ray [x, y, 1] is <= 1e-6."""
+    import torch
+
+    v, u = torch.nonzero(hit, as_tuple=True)
+    rays = torch.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
+                        torch.ones_like(u, dtype=torch.float32)], -1)
+    return float(((normal[hit] * rays).sum(-1) <= 1e-6).float().mean())
+
+
+def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launch_counts,
+                  smi: str) -> dict:
+    """Phase 11: the whole raycast surface at full width. SLAM with raycast
+    normals over the bench orbit's frames 0-3 (each frame's camera-frame
+    normal map feeding the next frame's tracking), then every map at once
+    on that grid from frame 3's pose, held against the same function on a
+    CPU copy and against the synthetic truth; the sphere trace on the 16^3
+    SLAM grid and on phase 8's 8^3 fragment grid; and the times, each on a
+    line of its own with the card's name and power limit."""
+    import dataclasses
+
+    import torch
+
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.models import dense_slam
+    from open3d_tpu_torch.ops.kernels._timing import median_of
+
+    t_start = time.perf_counter()
+    n = 4  # the bench orbit's frames both packages track (phase 5)
+
+    # ---- 11a. the SLAM slice with normals on, and with them off for the
+    # step time (the same frames, the same call)
+    def run(config):
+        model = dense_slam.create_model(config, T_init=lie.invert_se3(extr[0]), device=dev)
+        md, mn, out = torch.zeros_like(depths[0]), None, []
+        for i in range(n):
+            res, ms = event_ms(lambda: dense_slam.slam_step(model, depths[i], colors[i], md, intr,
+                                                            model_normal=mn))
+            model, md, mn = res.model, res.raycast_depth, res.raycast_normal
+            r, t = lie.pose_distance(model.T_frame_to_world, lie.invert_se3(extr[i]))
+            out.append({"ms": ms, "rot": float(r), "trans": float(t), "depth": md, "normal": mn})
+        return model, out
+
+    _, off = run(cfg)
+    zero_counts()
+    model, on = run(dataclasses.replace(cfg, raycast_normals=True))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches["march_tiles"] == n and launches["integrate_blocks_v2"] == n,
+          f"SLAM with normals raycasts through K2 and integrates through K1 {launches}")
+    check(all(c == 0 for k, c in launches.items()
+              if k not in ("march_tiles", "integrate_blocks_v2")), f"only K1 and K2 {launches}")
+    slam = {"max_rot_err": max(f["rot"] for f in on), "max_trans_err": max(f["trans"] for f in on),
+            "launches": launches, "frames": []}
+    for f in on:
+        hit = f["depth"] > 0
+        lens = torch.linalg.norm(f["normal"][hit], dim=-1)
+        slam["frames"].append({"hit_frac": float(hit.float().mean()),
+                               "max_unit_err": float((lens[lens > 0] - 1).abs().max()),
+                               "zero_normals": float((lens == 0).float().mean()),
+                               "camera_facing": camera_facing(f["normal"], hit, intr)})
+    log(f"[11] SLAM with raycast normals, bench orbit frames 0-{n - 1}: {slam}")
+    check(slam["max_trans_err"] < POSE_TOL and slam["max_rot_err"] < POSE_TOL,
+          f"pose error vs truth with normals {slam}")
+    check(all(f["hit_frac"] > 0.5 and f["max_unit_err"] < 1e-3 and f["camera_facing"] > 0.95
+              for f in slam["frames"]), f"unit, camera-facing normals {slam}")
+
+    # ---- 11b. every map at once on the grid after frame 3, from its pose
+    grid, E = model.vbg, extr[n - 1]
+    res = vbg_mod.raycast(grid, intr, E, cfg.depth_min, cfg.depth_max, with_color=True,
+                          with_normals=True, with_index_ratio=True)
+    cpu = vbg_mod.VoxelBlockGrid(grid.table.cpu(), grid.tw.cpu(), grid.color.cpu(),
+                                 grid.voxel_size, grid.block_resolution, grid.sdf_trunc)
+    ref = vbg_mod._maps_on_depth(cpu, intr, E.cpu(), res.depth.cpu(), cfg.depth_max, True, True,
+                                 True)
+    hit = res.mask
+    maps = {"hit_frac": float(hit.float().mean()),
+            "index_equal": bool(torch.equal(res.index.cpu(), ref.index)),
+            "mask_equal": bool(torch.equal(hit.cpu(), ref.mask))}
+    for name in ("vertex", "color", "normal", "interp_ratio"):
+        maps[f"{name}_max_abs_err"] = float((getattr(res, name).cpu() - getattr(ref, name)).abs().max())
+    vert = res.vertex[hit]
+    col_err = (res.color[hit] - synthetic.scene_color(vert)).abs().amax(-1)
+    nrm = res.normal[hit]
+    valid_n = torch.linalg.norm(nrm, dim=-1) > 0
+    cos = (nrm * synthetic.sdf_normal(synthetic.default_scene_sdf, vert)).sum(-1)[valid_n]
+    ang = torch.rad2deg(torch.acos(torch.clamp(cos, -1.0, 1.0)))
+    idx8, wt8 = res.index[hit], res.interp_ratio[hit]
+    ts, _ = vbg_mod.unpack_tw(grid.tw.view(-1)[torch.clamp(idx8, min=0)])
+    wsum = wt8.sum(-1)
+    good = wsum > 0.5
+    full = (idx8 >= 0).all(-1)
+    maps.update(
+        color_err_median=float(col_err.median()), color_err_q90=float(torch.quantile(col_err, 0.9)),
+        normal_deg_median=float(ang.median()), normal_deg_q90=float(torch.quantile(ang, 0.9)),
+        tsdf_abs_median=float(((ts * wt8).sum(-1)[good] / wsum[good]).abs().median()),
+        full_corner_frac=float(full.float().mean()),
+        partition_max_err=float((wt8[full].sum(-1) - 1).abs().max()))
+    log(f"[11] all maps from frame {n - 1}'s pose: {maps}")
+    check(maps["index_equal"] and maps["mask_equal"], f"maps on the card vs a CPU copy {maps}")
+    check(all(maps[f"{k}_max_abs_err"] <= 1e-5 for k in ("vertex", "color", "normal", "interp_ratio")),
+          f"maps on the card vs a CPU copy within 1e-5 {maps}")
+    check(maps["hit_frac"] > 0.5 and maps["color_err_median"] < COLOR_TOL["median"]
+          and maps["color_err_q90"] < COLOR_TOL["q90"], f"colour map vs the scene's texture {maps}")
+    check(maps["normal_deg_median"] < NORMAL_TOL_DEG["median"]
+          and maps["normal_deg_q90"] < NORMAL_TOL_DEG["q90"], f"normal map vs the scene's SDF {maps}")
+    check(maps["tsdf_abs_median"] < 0.1 and maps["partition_max_err"] < 1e-4
+          and maps["full_corner_frac"] > 0.9, f"index/ratio maps {maps}")
+
+    # ---- 11c. the sphere trace on the 16^3 SLAM grid against K2's depth
+    # and the truth
+    trace = vbg_mod.raycast(grid, intr, E, cfg.depth_min, cfg.depth_max, use_pallas=False)
+    hk, ht = hit, trace.mask
+    both = hk & ht
+    dz = (trace.depth - res.depth).abs()[both]
+    truth = depths[n - 1]
+    valid = ht & (truth > 0)
+    err = (trace.depth - truth).abs()[valid]
+    tr16 = {"hit_frac": float(ht.float().mean()), "hit_agree": float((hk == ht).float().mean()),
+            "median_dz_vs_march_m": float(dz.median()), "valid_frac": float(valid.float().mean()),
+            "median_err_m": float(err.median()), "gross_frac": float((err > 0.05).float().mean())}
+    log(f"[11] sphere trace, 16^3 SLAM grid: {tr16}")
+    check(tr16["hit_agree"] > TRACE_HIT_AGREE and tr16["median_dz_vs_march_m"] < grid.voxel_size,
+          f"sphere trace vs K2's depth {tr16}")
+    check(tr16["valid_frac"] > 0.5 and tr16["median_err_m"] < 0.01 and tr16["gross_frac"] < 0.15,
+          f"sphere trace vs the truth {tr16}")
+
+    # ---- 11d. the sphere trace on phase 8's 8^3 fragment grid, from a
+    # fragment pose (frame k -> frame 0), against the scene's SDF
+    fgrid, k = frag["grid"], frag["poses"].shape[0] // 2
+    Ef = lie.invert_se3(frag["poses"][k])
+    ftr = vbg_mod.raycast(fgrid, intr, Ef, cfg.depth_min, frag["depth_max"])
+    p_world = lie.transform_points(lie.invert_se3(frag["world_to_frame0"]), ftr.vertex[ftr.mask])
+    sdf = synthetic.default_scene_sdf(p_world).abs()
+    tr8 = {"frame": k, "hit_frac": float(ftr.mask.float().mean()), "sdf_median_m": float(sdf.median()),
+           "sdf_q90_m": float(torch.quantile(sdf, 0.9))}
+    log(f"[11] sphere trace, 8^3 fragment grid: {tr8}")
+    check(tr8["hit_frac"] > 0.5 and tr8["sdf_median_m"] < frag["voxel"],
+          f"fragment trace on the surface {tr8}")
+
+    # ---- 11e. times (printed, not gated)
+    def med(fn):
+        return median_of(lambda: event_ms(fn)[1])
+
+    depth_img = res.depth
+    times = {
+        "march_depth_only_ms": med(lambda: vbg_mod.raycast(grid, intr, E, cfg.depth_min,
+                                                           cfg.depth_max, with_color=False)),
+        "march_all_maps_ms": med(lambda: vbg_mod.raycast(
+            grid, intr, E, cfg.depth_min, cfg.depth_max, with_color=True, with_normals=True,
+            with_index_ratio=True)),
+        "color_map_ms": med(lambda: vbg_mod._maps_on_depth(grid, intr, E, depth_img,
+                                                          cfg.depth_max, True, False, False)),
+        "normal_map_ms": med(lambda: vbg_mod._maps_on_depth(grid, intr, E, depth_img,
+                                                           cfg.depth_max, False, True, False)),
+        "index_ratio_maps_ms": med(lambda: vbg_mod._maps_on_depth(grid, intr, E, depth_img,
+                                                                 cfg.depth_max, False, False, True)),
+        "vertex_only_ms": med(lambda: vbg_mod._maps_on_depth(grid, intr, E, depth_img,
+                                                            cfg.depth_max, False, False, False)),
+        "trace_16_ms": med(lambda: vbg_mod.raycast(grid, intr, E, cfg.depth_min, cfg.depth_max,
+                                                   use_pallas=False, with_color=False)),
+        "trace_8_ms": med(lambda: vbg_mod.raycast(fgrid, intr, Ef, cfg.depth_min,
+                                                  frag["depth_max"], with_color=False)),
+        "slam_step_normals_on_median_ms": statistics.median(f["ms"] for f in on[1:]),
+        "slam_step_normals_off_median_ms": statistics.median(f["ms"] for f in off[1:]),
+    }
+    for name, v in times.items():
+        ms, spread = v if isinstance(v, tuple) else (v, None)
+        log(f"[11] time {name} {ms:.4f} ms" + ("" if spread is None else f" (spread {spread:.4f})")
+            + f" | card {smi}")
+    log(f"[11] surface phase {time.perf_counter() - t_start:.1f} s")
+    return {"slam_normals": {k_: v for k_, v in slam.items() if k_ != "frames"}, "maps": maps,
+            "trace_16": tr16, "trace_8": tr8,
+            "times_ms": {k_: (v[0] if isinstance(v, tuple) else v) for k_, v in times.items()}}
 
 
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
@@ -711,7 +920,7 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
     from open3d_tpu_torch.ops.kernels import raycast as k2
     from open3d_tpu_torch.ops.kernels import tsdf as k3
-    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
 
     wrappers = {"integrate_blocks_v2": k1.integrate_blocks_v2, "march_tiles": k2.march_tiles,
                 "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks,
@@ -785,15 +994,20 @@ def main(argv=None) -> int:
         k1_args = args
         n_live = live.numel()
     rows, coords, d21, rgb24 = k1_args[:4]
-    k1_ms = device_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
-    # the first cold_ms call of a process reads high: logged, not counted
+    # each kernel time is the median of N_READINGS readings, printed with
+    # their spread (the largest less the smallest)
+    k1_ms, k1_spread = median_of(lambda: device_ms(
+        lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20))
+    # the first cold_ms call of a process read high once: logged, not counted
     k1_cold_first = cold_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
-    k1_cold_ms = cold_ms(lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20)
+    k1_cold_ms, k1_cold_spread = median_of(lambda: cold_ms(
+        lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20))
     k1_plain_ms = device_ms(lambda: k1.integrate_blocks_plain(ref.tw, ref.color, *k1_args), reps=3)
     k1_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
     k1_ops = n_live * 4096 * K1_OPS_VOXEL
     k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
-    log(f"[3] K1 {k1_ms:.4f} ms warm, {k1_cold_ms:.4f} ms cold (the process's first cold "
+    log(f"[3] K1 {k1_ms:.4f} ms warm (spread {k1_spread:.4f}), {k1_cold_ms:.4f} ms cold (spread "
+        f"{k1_cold_spread:.4f}; the process's first cold "
         f"reading {k1_cold_first:.4f} ms), plain {k1_plain_ms:.3f} ms, "
         f"bound {k1_bound_ms:.4f} ms by {k1_bound_by} ({k1_bytes} B, {k1_ops} flop)")
 
@@ -816,13 +1030,16 @@ def main(argv=None) -> int:
     check(k4_par["rows_changed"] > live.numel() // 2, f"K4 updated the live rows {k4_par}")
     check(int(tw_a[C].abs().sum()) == 0 and int(col_a[C].abs().sum()) == 0,
           "K4 dump row stays zero")
-    k4_ms = device_ms(lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20)
-    k4_cold_ms = cold_ms(lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20)
+    k4_ms, k4_spread = median_of(lambda: device_ms(
+        lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20))
+    k4_cold_ms, k4_cold_spread = median_of(lambda: cold_ms(
+        lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20))
     k4_plain_ms = device_ms(lambda: k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args), reps=3)
     k4_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + planes.numel() * 2
     k4_ops = n_live * 4096 * K4_OPS_VOXEL
     k4_bound_ms, k4_bound_by = bound(k4_bytes, k4_ops)
-    log(f"[3] K4 {k4_ms:.4f} ms warm, {k4_cold_ms:.4f} ms cold, plain {k4_plain_ms:.3f} ms, "
+    log(f"[3] K4 {k4_ms:.4f} ms warm (spread {k4_spread:.4f}), {k4_cold_ms:.4f} ms cold (spread "
+        f"{k4_cold_spread:.4f}), plain {k4_plain_ms:.3f} ms, "
         f"bound {k4_bound_ms:.4f} ms by {k4_bound_by} ({k4_bytes} B, {k4_ops} flop)")
     del tw_a, col_a, tw_b, col_b
 
@@ -863,17 +1080,17 @@ def main(argv=None) -> int:
     per_sm, sms = k2.occupancy(6)
     occ = {"ctas_per_sm": per_sm, "sms": sms, "waves": -(-steps.numel() // (per_sm * sms))}
     log(f"[4] K2 work {stats}; candidates walked a tile {walk}; occupancy {occ}")
-    k2_ms = device_ms(lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max),
-                    reps=20)
-    k2_cold_ms = cold_ms(
-        lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max), reps=20)
+    k2_ms, k2_spread = median_of(lambda: device_ms(
+        lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max), reps=20))
+    k2_cold_ms, k2_cold_spread = median_of(lambda: cold_ms(
+        lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max), reps=20))
     # the tile that walks longest, marched alone (every other tile's list
     # emptied): the part of the march that no other tile's work can hide
     slow = int(torch.argmax(steps))
     alone = lists._replace(nk=torch.where(torch.arange(steps.numel(), device=dev) == slow,
                                           lists.nk, 0).to(torch.int32).contiguous())
-    alone_ms = device_ms(
-        lambda: k2.march_tiles(grid, alone, intr, E, cfg.depth_min, cfg.depth_max), reps=20)
+    alone_ms, _ = median_of(lambda: device_ms(
+        lambda: k2.march_tiles(grid, alone, intr, E, cfg.depth_min, cfg.depth_max), reps=20))
     walk.update(slowest_tile=slow, slowest_tile_steps=int(steps[slow]),
                 slowest_tile_alone_ms=alone_ms)
     log(f"[4] K2 slowest tile {slow} ({int(steps[slow])} candidates) alone: {alone_ms:.4f} ms")
@@ -897,7 +1114,8 @@ def main(argv=None) -> int:
               + stats["ray_blocks"] * (1 + 6 * K2_OPS_SAMPLE)  # contiguity test, M = 6 samples
               + stats["crossings"] * K2_OPS_CROSS)
     k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_ops)
-    log(f"[4] K2 {k2_ms:.4f} ms warm, {k2_cold_ms:.4f} ms cold, plain {k2_plain_ms:.3f} ms, "
+    log(f"[4] K2 {k2_ms:.4f} ms warm (spread {k2_spread:.4f}), {k2_cold_ms:.4f} ms cold (spread "
+        f"{k2_cold_spread:.4f}), plain {k2_plain_ms:.3f} ms, "
         f"bound {k2_bound_ms:.4f} ms by {k2_bound_by} ({k2_bytes} B, {k2_ops} flop, {stats})")
     del grid, ref, lists
     torch.cuda.empty_cache()
@@ -1030,6 +1248,12 @@ def main(argv=None) -> int:
 
     # ---- 10. the probes' path: P1-P3 at the scripts' own sizes
     probe_kernels = micro_phase(dev, zero_counts, launch_counts)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the raycast surface: maps, normals in tracking, the trace
+    depths, colors, extr, _ = synthetic.render_sequence(8, intrinsic=intr, span=0.8, device=dev)
+    surface = surface_phase(dev, intr, cfg, depths, colors, extr, fr, zero_counts, launch_counts,
+                            smi)
 
     kernels = [
         {
@@ -1039,6 +1263,7 @@ def main(argv=None) -> int:
             "launches": launches["integrate_blocks_v2"],
             "max_abs_err": k1_par["max_abs_err"],
             "ms": k1_ms, "kernel_ms": k1_ms, "cold_ms": k1_cold_ms, "plain_ms": k1_plain_ms,
+            "spread_ms": k1_spread, "cold_spread_ms": k1_cold_spread, "times": MEDIAN_TIMES,
             "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
             "parity": k1_par, "tolerance": BIT_TOL,
         },
@@ -1049,6 +1274,7 @@ def main(argv=None) -> int:
             "launches": launches["march_tiles"],
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
+            "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
             "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
             "parity": k2_par, "tolerance": K2_TOL, "work": stats, "walk": walk,
             "occupancy": occ,
@@ -1060,6 +1286,8 @@ def main(argv=None) -> int:
             "launches": fr["launches"]["fuse_blocks"],
             "max_abs_err": k3_out["max_abs_err"],
             "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "cold_ms": k3_out["cold_ms"],
+            "spread_ms": k3_out["spread_ms"], "cold_spread_ms": k3_out["cold_spread_ms"],
+            "times": MEDIAN_TIMES,
             "floor_ms": k3_out["floor_ms"], "plain_ms": k3_out["plain_ms"],
             "bound_ms": k3_out["bound_ms"], "bound_by": k3_out["bound_by"], "library_ms": None,
             "parity": {k: k3_out[k] for k in ("colour", "no_colour")}, "tolerance": BIT_TOL,
@@ -1072,6 +1300,7 @@ def main(argv=None) -> int:
             "launches": launches_v1["integrate_blocks_v1"],
             "max_abs_err": k4_par["max_abs_err"],
             "ms": k4_ms, "kernel_ms": k4_ms, "cold_ms": k4_cold_ms, "plain_ms": k4_plain_ms,
+            "spread_ms": k4_spread, "cold_spread_ms": k4_cold_spread, "times": MEDIAN_TIMES,
             "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
             "parity": k4_par, "tolerance": BIT_TOL,
         },
@@ -1082,7 +1311,8 @@ def main(argv=None) -> int:
                                    "fragment": fr["fragment"],
                                    "fragment_stage_median_ms": fr["times"],
                                    "make_fragments_inside_ms": fr["inside_ms"],
-                                   "fragment_peak_bytes": fr["peak_bytes"], "card": smi}))
+                                   "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
+                                   "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -174,6 +174,19 @@ def activate(
     return ext[:C].contiguous(), slot.to(torch.int32), ok
 
 
+def erase(table: torch.Tensor, keys: torch.Tensor, max_probes: int = 32):
+    """Remove packed keys (N, 2): their slots become tombstones, so the
+    probe chains through them stay intact. Returns (table, erased (N,)
+    bool); the table is a new tensor, the input is not modified."""
+    slot, found = find(table, keys, max_probes)
+    C = table.shape[0]
+    tomb = torch.stack([torch.zeros_like(slot), torch.full_like(slot, _TOMB_W1)], dim=-1)
+    # keys not found write into a spare row, dropped (JAX's mode="drop")
+    ext = torch.cat([table, table.new_zeros((1, 2))])
+    ext[torch.where(found, slot, C).to(torch.int64)] = torch.where(found[:, None], tomb, 0)
+    return ext[:C].contiguous(), found
+
+
 def unique_keys(keys: torch.Tensor, capacity: int):
     """Deduplicate packed key pairs (N, 2) into a fixed-capacity array.
     Returns (unique (capacity, 2) int32 invalid-padded, count () int32).
@@ -207,3 +220,31 @@ def unique_keys(keys: torch.Tensor, capacity: int):
 def occupied_mask(table: torch.Tensor) -> torch.Tensor:
     """(C,) bool: slot holds a live key."""
     return (table[..., 1] & 1) == 1
+
+
+def active_slots(table: torch.Tensor, capacity: int):
+    """The occupied slots in ascending order, padded with -1 to `capacity`.
+    Returns (slots (capacity,) int32, count () int32 clamped to capacity)."""
+    occ = occupied_mask(table)
+    C = table.shape[0]
+    rank = torch.cumsum(occ.to(torch.int64), 0) - 1
+    count = occ.to(torch.int32).sum()
+    dst = torch.where(occ & (rank < capacity), rank, capacity)
+    out = torch.full((capacity + 1,), -1, dtype=torch.int32, device=table.device)
+    out.scatter_(0, dst, torch.arange(C, dtype=torch.int32, device=table.device))
+    return out[:capacity], torch.clamp(count, max=capacity)
+
+
+def resize(table: torch.Tensor, new_capacity: int):
+    """Rehash into a table of `new_capacity` slots (larger, or smaller if
+    the keys fit) on the table's device. Returns (new_table, old_slots (C,)
+    int32, new_slots (C,) int32, count): for i < count the key at
+    old_slots[i] now lives at new_slots[i] (-1 where it did not fit), which
+    callers use to move their value rows."""
+    C = table.shape[0]
+    old_slots, count = active_slots(table, C)
+    keys = table[torch.clamp(old_slots, min=0).to(torch.int64)]
+    keys = torch.where((old_slots >= 0)[:, None], keys, 0)
+    new_table, new_slots, ok = activate(make_table(new_capacity, device=table.device), keys,
+                                        max_rounds=64)
+    return new_table, old_slots, torch.where(ok, new_slots, -1), count

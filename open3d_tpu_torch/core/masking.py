@@ -7,11 +7,50 @@ point coordinates are parked at FAR_COORD.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Padding coordinate for invalid points: far outside any plausible scene,
 # but small enough that squared distances (~1e17) stay finite in float32.
 FAR_COORD = 3.0e8
+
+
+def round_up(x: int, multiple: int) -> int:
+    return int(math.ceil(x / multiple) * multiple)
+
+
+def pad_axis0(x: torch.Tensor, capacity: int, fill_value) -> torch.Tensor:
+    """Pad (or truncate) axis 0 to `capacity` with `fill_value`."""
+    n = x.shape[0]
+    if n == capacity:
+        return x
+    if n > capacity:
+        return x[:capacity]
+    pad = torch.full((capacity - n,) + tuple(x.shape[1:]), fill_value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=0)
+
+
+def _expand_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    while mask.ndim < x.ndim:
+        mask = mask[..., None]
+    return mask
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=0, keepdims=False):
+    """Mean of x over `axis`, counting only the rows where mask is True."""
+    m = _expand_mask(mask.to(x.dtype), x)
+    total = torch.sum(x * m, dim=axis, keepdim=keepdims)
+    count = torch.sum(m, dim=axis, keepdim=keepdims)
+    return total / torch.clamp(count, min=1.0)
+
+
+def masked_min(x: torch.Tensor, mask: torch.Tensor, axis=0, big=float("inf")):
+    return torch.amin(torch.where(_expand_mask(mask, x), x, big), dim=axis)
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor, axis=0, small=float("-inf")):
+    return torch.amax(torch.where(_expand_mask(mask, x), x, small), dim=axis)
 
 
 def compact_indices(mask: torch.Tensor, capacity: int):

@@ -1,5 +1,5 @@
-"""Synthetic RGB-D scenes with exact ground truth (port of the rendering
-part of open3d_tpu/data/synthetic.py).
+"""Synthetic RGB-D scenes with exact ground truth (port of
+open3d_tpu/data/synthetic.py).
 
 A living-room-scale signed-distance scene, depth rendered by sphere
 tracing with a few Newton steps, a smooth pseudo-texture for colour, and
@@ -15,6 +15,7 @@ import torch
 
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.geometry.pointcloud import PointCloud
 
 
 def _vec(x, like: torch.Tensor) -> torch.Tensor:
@@ -125,6 +126,35 @@ def render_depth(
         return depth, None
     color = torch.where(hit[..., None], scene_color(p_hit), 0.0)
     return depth, color
+
+
+def sample_surface(
+    sdf: Callable,
+    key: torch.Generator,
+    n_points: int,
+    bound: float = 2.4,
+    n_newton: int = 30,
+    capacity: Optional[int] = None,
+    with_normals: bool = True,
+    with_colors: bool = False,
+) -> PointCloud:
+    """Points on the SDF's zero level set: uniform points of the cube
+    [-bound, bound]^3, drawn from the generator `key` on its own device,
+    projected along the gradient (p <- p - 0.9 sdf(p) n(p), `n_newton`
+    times); the points that end within 1e-3 of the surface are valid. The
+    draws are not JAX's: the points differ from the JAX package's, their
+    distribution does not."""
+    p = torch.rand((n_points, 3), generator=key, device=key.device, dtype=torch.float32)
+    p = p * (2.0 * bound) - bound
+    for _ in range(n_newton):
+        p = p - (sdf(p) * 0.9)[..., None] * sdf_normal(sdf, p)
+    ok = torch.abs(sdf(p)) < 1e-3
+    attrs = {}
+    if with_normals:
+        attrs["normals"] = sdf_normal(sdf, p)
+    if with_colors:
+        attrs["colors"] = scene_color(p)
+    return PointCloud.create(p, capacity=capacity or n_points, mask=ok, **attrs)
 
 
 def look_at(eye, target, up=(0.0, -1.0, 0.0), device=None) -> torch.Tensor:

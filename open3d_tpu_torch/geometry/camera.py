@@ -1,4 +1,4 @@
-"""Pinhole camera intrinsics (port of open3d_tpu/geometry/camera.py).
+"""Pinhole camera models (port of open3d_tpu/geometry/camera.py).
 
 Intrinsics are host metadata (Python floats and ints); the 3x3 matrix is
 made on demand.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from open3d_tpu_torch.core.platform import default_device
@@ -51,3 +52,23 @@ class PinholeCameraIntrinsic:
     def prime_sense_default() -> "PinholeCameraIntrinsic":
         """PrimeSense preset: 640x480, fx=fy=525, cx=319.5, cy=239.5."""
         return PinholeCameraIntrinsic(640, 480, 525.0, 525.0, 319.5, 239.5)
+
+    @staticmethod
+    def from_matrix(width: int, height: int, K) -> "PinholeCameraIntrinsic":
+        """From a 3x3 matrix (a tensor on any device, or an array)."""
+        K = K.detach().cpu().numpy() if isinstance(K, torch.Tensor) else np.asarray(K)
+        return PinholeCameraIntrinsic(width, height, float(K[0, 0]), float(K[1, 1]),
+                                      float(K[0, 2]), float(K[1, 2]))
+
+
+@dataclasses.dataclass
+class PinholeCameraParameters:
+    """Intrinsic + world-to-camera extrinsic."""
+
+    intrinsic: PinholeCameraIntrinsic
+    extrinsic: torch.Tensor  # (4, 4) world -> camera
+
+
+@dataclasses.dataclass
+class PinholeCameraTrajectory:
+    parameters: list[PinholeCameraParameters]

@@ -1,5 +1,4 @@
-"""Dense image ops for the tracking stage (port of the depth, intensity,
-normal and sampling functions of open3d_tpu/geometry/image.py).
+"""Dense image ops (port of open3d_tpu/geometry/image.py).
 
 Depth is (H, W) float32 metres with 0 marking invalid pixels; colour is
 (H, W, 3) float32 in [0, 1]; intensity is (H, W) float32. Every filter is a
@@ -90,6 +89,20 @@ def filter_bilateral_depth(depth, kernel_size: int = 5, sigma_space: float = 2.0
     return torch.where(depth > 0.0, out, 0.0)
 
 
+def filter_sobel(img: torch.Tensor):
+    """(dx, dy) Sobel gradients of an (H, W) image, a correlation with the
+    kernel / 8 (no flip); the border reads zeros."""
+    kx = [[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
+    dx = torch.zeros_like(img)
+    dy = torch.zeros_like(img)
+    for i in range(3):
+        for j in range(3):
+            s = _shift2d(img, -(i - 1), -(j - 1), fill=0.0)  # img(y + i - 1, x + j - 1)
+            dx = dx + (kx[i][j] / 8.0) * s
+            dy = dy + (kx[j][i] / 8.0) * s
+    return dx, dy
+
+
 def erode_mask(mask: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Binary erosion with a (2r+1)^2 square; the border counts as invalid."""
     out = mask
@@ -118,6 +131,34 @@ def pyrdown_depth(depth: torch.Tensor, diff_threshold: float = 0.07) -> torch.Te
             den = den + w
     smoothed = torch.where(depth > 0.0, num / torch.clamp(den, min=1e-8), 0.0)
     return smoothed[::2, ::2].contiguous()
+
+
+def colorize_depth(depth: torch.Tensor, depth_scale: float = 1.0, depth_min: float = 0.0,
+                   depth_max: float = 3.0) -> torch.Tensor:
+    """Depth -> (H, W, 3) false-colour RGB in [0, 1], for looking at."""
+    d = torch.clamp((depth / depth_scale - depth_min) / max(depth_max - depth_min, 1e-6), 0.0, 1.0)
+    r = torch.clamp(1.5 - torch.abs(2.0 * d - 1.5), 0.0, 1.0)
+    g = torch.clamp(1.5 - torch.abs(2.0 * d - 1.0), 0.0, 1.0)
+    b = torch.clamp(1.5 - torch.abs(2.0 * d - 0.5), 0.0, 1.0)
+    return torch.stack([r, g, b], dim=-1)
+
+
+def linear_transform(img: torch.Tensor, scale: float = 1.0, offset: float = 0.0) -> torch.Tensor:
+    """img * scale + offset."""
+    return img * scale + offset
+
+
+def dilate(img: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:
+    """Grayscale dilation: the max over the kernel_size^2 window, per
+    channel; the border takes the max over the pixels inside."""
+    r = kernel_size // 2
+    out = img
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            if dy == 0 and dx == 0:
+                continue
+            out = torch.maximum(out, _shift2d(img, dy, dx, fill=float("-inf")))
+    return torch.where(torch.isfinite(out), out, img)
 
 
 def create_vertex_map(depth: torch.Tensor, intrinsic: PinholeCameraIntrinsic) -> torch.Tensor:

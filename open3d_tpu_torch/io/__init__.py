@@ -1,8 +1,11 @@
-"""Point-cloud IO (port of the `.ply` branches of open3d_tpu/io/__init__.py).
+"""IO facade (port of open3d_tpu/io/__init__.py): point clouds, the
+VoxelBlockGrid npz checkpoint and pose graphs.
 
 `read_point_cloud` and `write_point_cloud` dispatch on the extension, as in
 the JAX package; only `.ply` is ported, and every other format raises
-NotImplementedError until the IO formats are ported (ROADMAP item 10).
+NotImplementedError until the IO formats are ported (ROADMAP item 10). The
+grid checkpoint and the pose-graph JSON are the JAX package's formats, so a
+file written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -12,8 +15,10 @@ from typing import Optional
 
 import numpy as np
 
+from open3d_tpu_torch import convert
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 from open3d_tpu_torch.io import ply as ply_io
+from open3d_tpu_torch.pipelines import pose_graph
 from open3d_tpu_torch.io.ply import read_ply, write_ply
 
 
@@ -46,4 +51,29 @@ def write_point_cloud(path: str, pcd) -> None:
     ply_io.write_ply(path, d["positions"], normals=d.get("normals"), colors=d.get("colors"))
 
 
-__all__ = ["read_point_cloud", "write_point_cloud", "read_ply", "write_ply"]
+def write_voxel_block_grid(path: str, vbg) -> None:
+    """npz: {table, tw, color, voxel_size, block_resolution, sdf_trunc},
+    the payload flat (C+1, B^3); a grid without colour stores an empty
+    (C+1, 0) colour."""
+    np.savez_compressed(path, **convert.vbg_to_numpy(vbg))
+
+
+def read_voxel_block_grid(path: str, device=None):
+    """A grid from the npz checkpoint, on `device` (default: the card)."""
+    with np.load(path) as d:
+        return convert.vbg_from_numpy(**{k: d[k] for k in d.files}, device=device)
+
+
+def read_pose_graph(path: str, device=None):
+    """A PoseGraph from the reference's JSON schema, on `device` (default:
+    the card)."""
+    return pose_graph.read_pose_graph(path, device=device)
+
+
+def write_pose_graph(path: str, graph) -> None:
+    pose_graph.write_pose_graph(path, graph)
+
+
+__all__ = ["read_point_cloud", "write_point_cloud", "read_ply", "write_ply",
+           "read_voxel_block_grid", "write_voxel_block_grid", "read_pose_graph",
+           "write_pose_graph"]

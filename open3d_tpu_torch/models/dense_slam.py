@@ -42,9 +42,8 @@ class SLAMConfig:
     trunc_voxel_multiplier: float = 8.0
     odometry_method: str = odom.POINT_TO_PLANE
     frame_block_capacity: int = 4096
-    # the JAX package's sphere-trace step count; the port raycasts by the
-    # tile march, which has none, so it reads this field nowhere. It stays so
-    # that a JAX model's config carries over field for field.
+    # the sphere trace's step count (grids of other block sizes than 16^3);
+    # the default 16^3 grid raycasts by the tile march, which has none
     raycast_max_steps: int = 96
     with_color: bool = True
     raycast_color: bool = False
@@ -97,12 +96,14 @@ def create_model(
 
 
 def synthesize_model_frame(model: SLAMModel, intrinsic: PinholeCameraIntrinsic):
-    """Raycast the TSDF from the current pose."""
+    """Raycast the TSDF from the current pose. Normals, when the config asks
+    for them, come back in the camera frame, beside the camera-frame vertex
+    maps that tracking builds from the depth."""
     cfg = model.config
     if cfg.model_raycast_stride > 1:
         intrinsic = intrinsic.scaled(1.0 / cfg.model_raycast_stride)
     extrinsic = lie.invert_se3(model.T_frame_to_world)
-    return vbg_mod.raycast(
+    ray = vbg_mod.raycast(
         model.vbg,
         intrinsic,
         extrinsic,
@@ -112,6 +113,9 @@ def synthesize_model_frame(model: SLAMModel, intrinsic: PinholeCameraIntrinsic):
         with_color=cfg.with_color and cfg.raycast_color,
         with_normals=cfg.raycast_normals,
     )
+    if ray.normal is not None:
+        ray = ray._replace(normal=ray.normal @ extrinsic[:3, :3].T)
+    return ray
 
 
 def track_frame_to_model(

@@ -13,6 +13,16 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
+N_READINGS = 5  # readings a kernel time is the median of
+
+
+def median_of(read) -> tuple:
+    """(median, spread) of N_READINGS calls of read(), each one reading of a
+    time: the spread is the largest reading less the smallest."""
+    vals = sorted(read() for _ in range(N_READINGS))
+    return vals[len(vals) // 2], vals[-1] - vals[0]
+
+
 def device_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of fn() over `reps` runs, by CUDA events. A spin
     kernel of about 50 ms runs first, so the host has queued every launch

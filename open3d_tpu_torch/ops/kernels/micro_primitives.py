@@ -53,7 +53,6 @@ from open3d_tpu_torch.ops.kernels._plain import check_aligned, check_tensor as _
 
 ITERS_LO = 1000
 ITERS_HI = 9000
-N_SLOPES = 5  # slopes a probe's time is the median of
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
 
@@ -420,20 +419,19 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def slope_ns(probe: Probe, inputs: list, reps: int = 3) -> tuple:
-    """(ns of one instance, spread): the median over N_SLOPES independent
+    """(ns of one instance, spread): the median over _timing.N_READINGS independent
     slopes (t(ITERS_HI) - t(ITERS_LO)) / (ITERS_HI - ITERS_LO), each time
     by CUDA events over `reps` launches (so the launch and the staging
     cancel, as the script's _time_kernel cancels its dispatch), and the
     largest less the smallest of those slopes, in ns."""
-    from open3d_tpu_torch.ops.kernels._timing import device_ms
+    from open3d_tpu_torch.ops.kernels._timing import device_ms, median_of
 
-    slopes = []
-    for _ in range(N_SLOPES):
+    def slope():
         t_lo = device_ms(lambda: run_probe(probe, inputs, ITERS_LO), reps)
         t_hi = device_ms(lambda: run_probe(probe, inputs, ITERS_HI), reps)
-        slopes.append((t_hi - t_lo) / (ITERS_HI - ITERS_LO) * 1e6)
-    slopes.sort()
-    return slopes[len(slopes) // 2], slopes[-1] - slopes[0]
+        return (t_hi - t_lo) / (ITERS_HI - ITERS_LO) * 1e6
+
+    return median_of(slope)
 
 
 def main() -> None:

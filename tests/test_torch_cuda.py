@@ -353,3 +353,59 @@ def test_product_refuses_a_misaligned_base_on_the_card(cuda, family, M, K, N):
     out = p1.product(family, a.clone(), b, 1)
     torch.cuda.synchronize()
     assert not bool(out.any())
+
+
+@pytest.fixture(scope="module", params=[16, 8], ids=["16^3", "8^3"])
+def fused(cuda, request):
+    """Two frames fused into a coloured grid on the card (K1 at 16^3, K3 at
+    8^3), and a CPU copy of it."""
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+
+    d, c, e, intr = synthetic.render_sequence(2, span=0.1, device=cuda)
+    g = vbg.create(voxel_size=0.02, block_resolution=request.param, block_count=4096, device=cuda)
+    for i in range(2):
+        keys, _ = vbg.compute_unique_block_coordinates(g, d[i], intr, e[i], frame_block_capacity=1024)
+        g = vbg.integrate(g, keys, d[i], c[i], intr, e[i])
+    cpu = vbg.VoxelBlockGrid(g.table.cpu(), g.tw.cpu(), g.color.cpu(), g.voxel_size,
+                             g.block_resolution, g.sdf_trunc)
+    return g, cpu, e, intr
+
+
+@pytest.mark.parametrize("fused", [16], indirect=True, ids=["16^3"])
+def test_raycast_maps_on_the_march_match_a_cpu_copy(fused):
+    """Every map on the card's march depth equals the same function on CPU
+    copies of the grid and that depth: index exact, the rest within 1e-5;
+    the march kernel ran."""
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+    from open3d_tpu_torch.ops.kernels import raycast as k2
+
+    g, cpu, e, intr = fused
+    n = k2.march_tiles.launches
+    res = vbg.raycast(g, intr, e[1], with_color=True, with_normals=True, with_index_ratio=True)
+    assert k2.march_tiles.launches == n + 1
+    ref = vbg._maps_on_depth(cpu, intr, e[1].cpu(), res.depth.cpu(), 3.0, True, True, True)
+    assert torch.equal(res.index.cpu(), ref.index) and torch.equal(res.mask.cpu(), ref.mask)
+    for name in ("vertex", "color", "normal", "interp_ratio"):
+        err = float((getattr(res, name).cpu() - getattr(ref, name)).abs().max())
+        assert err <= 1e-5, (name, err)
+    assert float(res.mask.float().mean()) > 0.5 and float(res.color.abs().sum()) > 0
+
+
+def test_sphere_trace_on_the_card_matches_a_cpu_copy(fused):
+    """use_pallas=False on the card (8^3: the default) against the same
+    trace of the CPU copy: masks agree on >= 99.9 % of rays, depths within
+    1e-5 m on >= 99.9 % of the rays both hit; no kernel is launched."""
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+    from open3d_tpu_torch.ops.kernels import raycast as k2
+
+    g, cpu, e, intr = fused
+    n = k2.march_tiles.launches
+    use = None if g.block_resolution != 16 else False
+    res = vbg.raycast(g, intr, e[1], use_pallas=use, with_normals=True)
+    ref = vbg.raycast(cpu, intr, e[1].cpu(), use_pallas=use, with_normals=True)
+    assert k2.march_tiles.launches == n
+    mk, mc = res.mask.cpu(), ref.mask
+    assert float(mk.float().mean()) > 0.5 and float((mk == mc).float().mean()) >= 0.999
+    dz = (res.depth.cpu() - ref.depth).abs()[mk & mc]
+    assert float((dz <= 1e-5).float().mean()) >= 0.999

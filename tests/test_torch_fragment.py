@@ -6,11 +6,14 @@ frames.
 Bars: extraction on one grid carried across by `convert` gives the same
 count, positions within 1e-5 and normals within 1e-4 (the same float32
 formulas, in the same order). PLY bytes are identical. `make_fragments` at
-160x120 (tests/test_reconstruction.py's configuration, one 6-frame
-fragment): fragment poses within 0.02 m / 0.02 rad of each other and 0.05 of
-the truth, point counts within 2 % (the odometry sums and the fuse's colour
-rounding differ in the last bits, and the fuse's samples differ where a
-voxel sits on a half-pixel).
+160x120 (tests/test_reconstruction.py's configuration, one fragment of the
+first 4 of the 6 rendered frames: three odometry pairs and two keyframe
+loop-closure candidates; the JAX package's run takes most of this file's
+time, as it compiles its odometry loops anew for every pair): fragment
+poses within 0.02 m / 0.02 rad of each other and 0.05 of the truth, point
+counts within 2 % (the odometry sums and the fuse's colour rounding differ
+in the last bits, and the fuse's samples differ where a voxel sits on a
+half-pixel).
 """
 
 import os
@@ -39,6 +42,7 @@ from open3d_tpu_torch.pipelines import reconstruction as trc
 torch.set_num_threads(2)
 INTR = (160, 120, 131.25, 131.25, 79.5, 59.5)
 N_FRAMES = 6
+N_FRAG = 4  # frames of the make_fragments test
 
 
 class _Sequence:
@@ -133,7 +137,7 @@ def test_point_cloud_container():
 
 
 def _cfg(out):
-    return dict(fragment_size=N_FRAMES, n_keyframes_per_n_frame=3, depth_max=4.0,
+    return dict(fragment_size=N_FRAG, n_keyframes_per_n_frame=3, depth_max=4.0,
                 voxel_size=0.02, block_count=8192, block_resolution=8,
                 trunc_voxel_multiplier=4.0, downsample_voxel_size=0.05,
                 registration_point_capacity=8192, fragment_point_capacity=65536,
@@ -141,7 +145,7 @@ def _cfg(out):
 
 
 def test_make_fragments_matches_jax(frames, tmp_path):
-    d, c, e = frames
+    d, c, e = (a[:N_FRAG] for a in frames)
     cj = jrc.ReconstructionConfig(**_cfg(str(tmp_path / "jax")))
     ct = trc.ReconstructionConfig(**_cfg(str(tmp_path / "port")))
     pj = jrc.make_fragments(_Sequence(JIntr(*INTR), d, c), cj)
@@ -151,14 +155,14 @@ def test_make_fragments_matches_jax(frames, tmp_path):
     gj = jpg.read_pose_graph(os.path.join(cj.path_output, "fragments", "fragment_000.json"))
     gt = tpg.read_pose_graph(os.path.join(ct.path_output, "fragments", "fragment_000.json"),
                              device="cpu")
-    assert gt.poses.shape[0] == N_FRAMES
+    assert gt.poses.shape[0] == N_FRAG
     # both keep the odometry chain; a loop closure whose confidence ends
     # near the prune threshold may survive in one package only
-    chain = [[i, i + 1] for i in range(N_FRAMES - 1)]
+    chain = [[i, i + 1] for i in range(N_FRAG - 1)]
     for g in (np.asarray(gj.edges), gt.edges.numpy()):
         assert [list(x) for x in g if x[1] == x[0] + 1] == chain
     truth = torch.from_numpy(e[0] @ np.linalg.inv(e)).float()  # frame i -> frame 0
-    for i in range(N_FRAMES):
+    for i in range(N_FRAG):
         rot, trans = tlie.pose_distance(gt.poses[i], torch.from_numpy(np.asarray(gj.poses[i])))
         assert float(rot) < 0.02 and float(trans) < 0.02, (i, float(rot), float(trans))
         rot, trans = tlie.pose_distance(gt.poses[i], truth[i])

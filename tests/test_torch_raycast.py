@@ -113,8 +113,16 @@ def test_raycast_result_and_empty_grid(scene):
     empty = tvbg.create(voxel_size=0.03, block_count=512, with_color=False, device="cpu")
     de, _ = trc.raycast_depth(empty, TIntr(64, 32, 40.0, 40.0, 31.5, 15.5), torch.eye(4), 0.1, 3.0, K=8)
     assert float(de.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError):
-        tvbg.raycast(vt, ti, _t(extr[0]), 0.1, 4.0, with_normals=True)
+    # the normal map (ported since) leaves depth and mask as they are; the
+    # vertex map, whose rays are then set up to round alike on every device,
+    # moves by an ulp of a ray times the depth (< 4 m) and the sum's rounding
+    rn = tvbg.raycast(vt, ti, _t(extr[0]), 0.1, 4.0, with_normals=True)
+    for name in ("depth", "mask"):
+        assert torch.equal(getattr(rn, name), getattr(res, name)), name
+    torch.testing.assert_close(rn.vertex, res.vertex, atol=2e-6, rtol=0)
+    lens = torch.linalg.norm(rn.normal[rn.mask], dim=-1)
+    assert float((lens > 0).float().mean()) > 0.95 and float(rn.normal[~rn.mask].abs().max()) == 0
+    assert float((lens[lens > 0] - 1.0).abs().max()) < 1e-3
 
 
 # ---- the CUDA march's schedule, ray by ray, in numpy

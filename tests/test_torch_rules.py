@@ -487,24 +487,8 @@ def test_probe_wrappers_refuse_indices_out_of_range():
 # Names the reference has and the port still lacks, each with the item of
 # ROADMAP.md §1 that queues it. Nothing else may be missing.
 QUEUED = {
-    "core.hashmap": {"active_slots": 3, "erase": 3, "resize": 3},
-    "core.linalg": {"eigh3x3": 3, "solve3x3": 3},
-    "core.masking": {"masked_max": 3, "masked_mean": 3, "masked_min": 3, "pad_axis0": 3,
-                     "round_up": 3},
-    "data.synthetic": {"sample_surface": 3},
-    "geometry.camera": {"PinholeCameraParameters": 3, "PinholeCameraTrajectory": 3,
-                        "PinholeCameraIntrinsic.from_matrix": 3},
-    "geometry.image": {"colorize_depth": 3, "dilate": 3, "filter_sobel": 3,
-                       "linear_transform": 3},
-    "geometry.pointcloud": {f"PointCloud.{m}": 3 for m in (
-        "transform", "translate", "rotate", "scale", "get_min_bound", "get_max_bound",
-        "get_center", "select_by_mask", "crop")},
-    "geometry.rgbd": {"pointcloud_from_depth": 3, "pointcloud_from_rgbd": 3,
-                      "project_to_rgbd": 3},
-    "geometry.voxel_block_grid": {"BlockIndex": 5, "build_block_index": 5, "estimate_range": 5,
-                                  "extract_triangle_mesh": 7},
-    "io": {"read_voxel_block_grid": 3, "write_voxel_block_grid": 3, "read_pose_graph": 3,
-           "write_pose_graph": 3, "read_triangle_mesh": 3, "write_triangle_mesh": 3},
+    "geometry.voxel_block_grid": {"extract_triangle_mesh": 7},
+    "io": {"read_triangle_mesh": 7, "write_triangle_mesh": 7},
     "pipelines.reconstruction": {"register_fragments": 9, "refine_registration": 9,
                                  "integrate_scene": 9, "run_system": 9, "extract_scene_mesh": 9},
 }
