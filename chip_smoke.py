@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the dense-SLAM
 frame step, stage 1 of the offline reconstruction system (make_fragments),
-and the primitive, gather and march probes that scripts/ ran on the TPU.
+the primitive, gather and march probes that scripts/ ran on the TPU, and
+the registration path (ICP, FPFH, RANSAC, FGR).
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -55,7 +56,19 @@ Phases:
      grid and depth and against the synthetic truth; the sphere trace on
      that 16^3 grid (against K2's depth and the truth) and on phase 8's
      8^3 fragment grid (against the scene's SDF); each map's, each trace's
-     and the step's time with normals on and off.
+     and the step's time with normals on and off;
+ 12. the registration path at bench.py's two workloads, plain PyTorch with
+     no kernel of csrc/ on it (the counts stay 0): voxel_down_sample of a
+     640x480 cloud against a CPU copy and against itself; point-to-plane
+     ICP on the two down-sampled frames (10 iterations, then 30 from a
+     perturbed start through the band and the exact 1-NN), within 0.02 m /
+     rad of the truth; the band's shortfall against a CPU copy's and the
+     banded 1-NN against the exact one; FPFH, RANSAC and FGR on the bench's
+     own pair (printed) and on a rigidly moved copy of frame 0's cloud,
+     within 0.05 m / rad; FPFH on frame 0's cloud against a CPU copy,
+     within the bar that the two neighbour tables' d2 set; the times a line
+     each (the 30-iteration ICP beside the iterations it needed) and the
+     peak memory.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -118,6 +131,14 @@ COLOR_TOL = dict(median=0.02, q90=0.04)
 NORMAL_TOL_DEG = dict(median=2.0, q90=6.0)
 TRACE_HIT_AGREE = 0.97
 PROBE_KERNELS = ("micro_gather", "micro_raymarch", "micro_primitives")
+# Phase 12's bars: the JAX package's own registration tests
+ICP_POSE_TOL = 0.02  # m and rad, tests/test_registration.py:86-87
+BAND_EXACT_TOL = 5e-4  # banded vs exact ICP pose, elementwise, tests/test_nns.py:148
+GLOBAL_POSE_TOL = 0.05  # m and rad, tests/test_global_registration.py:90-93
+RANSAC_MIN_FITNESS = 0.7  # the same test's bar
+VDS_TOL = 1e-6  # voxel means on the card vs a CPU copy (sequential sums on both)
+ICP_CAPACITY = 40960  # voxel_down_sample capacities of bench.py's ICP and FPFH workloads
+FPFH_CAPACITY = 16384
 # how a kernel's ms (warm, cold, floor) is read; the plain versions' and
 # the library calls' times are single readings
 MEDIAN_TIMES = "the median of 5 readings, each a mean over 20 launches; spread = largest - smallest"
@@ -834,6 +855,296 @@ def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launc
             "times_ms": {k_: (v[0] if isinstance(v, tuple) else v) for k_, v in times.items()}}
 
 
+def cloud_diff(a, b) -> dict:
+    """How two clouds of one capacity differ: masks equal, and the largest
+    difference of positions and of each attribute on the valid rows."""
+    import torch
+
+    out = {"mask_equal": bool(torch.equal(a.mask.cpu(), b.mask.cpu())), "max_abs_err": 0.0}
+    if out["mask_equal"]:
+        m = a.mask.cpu()
+        for x, y in [(a.positions, b.positions)] + [(a.attrs[k], b.attrs[k]) for k in a.attrs]:
+            if m.any():
+                out["max_abs_err"] = max(out["max_abs_err"], float((x.cpu()[m] - y.cpu()[m]).abs().max()))
+    return out
+
+
+def clouds_equal(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a.mask, b.mask) and torch.equal(a.positions, b.positions)
+            and set(a.attrs) == set(b.attrs) and all(torch.equal(a.attrs[k], b.attrs[k]) for k in a.attrs))
+
+
+def fpfh_weight_err(idx_a, d2_a, idx_b, d2_b):
+    """Per row of two FPFH neighbour tables with the same neighbour set:
+    (e, the largest |d2_a / d2_b - 1| over the neighbours both weigh, inf
+    where one table weighs a neighbour the other does not; the largest
+    |d2_a - d2_b|), both float64 on the CPU. FPFH's aggregated part is
+    100 N / D, N = sum_k s_k w_k <= D = sum_k S_k w_k with w_k = 1 / d2_k;
+    weights off by a factor within 1 +- e move N and D each by at most e D,
+    so rows whose SPFHs agree lie within 200 e / (1 - e) of each other."""
+    import torch
+
+    idx_a, d2_a, idx_b, d2_b = (x.cpu() for x in (idx_a, d2_a, idx_b, d2_b))
+    ia, oa = torch.sort(idx_a, 1)
+    _, ob = torch.sort(idx_b, 1)
+    da, db = torch.gather(d2_a, 1, oa).double(), torch.gather(d2_b, 1, ob).double()
+    nbr = (ia >= 0) & (ia != torch.arange(ia.shape[0])[:, None])
+    wa, wb = da > 1e-12, db > 1e-12
+    e = torch.where(nbr & wa & wb, (da / torch.where(wb, db, 1.0) - 1.0).abs(), 0.0)
+    e = torch.where(nbr & (wa != wb), torch.inf, e).amax(1)
+    return e, torch.where(nbr, (da - db).abs(), 0.0).amax(1)
+
+
+def band_whole_windows(b, query, qmask, dmax: float, tile: int = 512):
+    """(N,) bool: the queries whose tile of banded_one_nn's band `b` saw its
+    whole candidate run, found from the public sorted keys `kt` and
+    banded_query_key as the band places its windows: the run [lo, hi) of
+    keys within dmax of the tile's valid keys, a window of b["window"] rows
+    centred on it from a multiple of 256."""
+    import torch
+
+    from open3d_tpu_torch.core import nns
+
+    kt, W, n = b["kt"], b["window"], query.shape[0]
+    Q = min(tile, n)
+    T = -(-n // Q)
+    pad = T * Q - n
+    kq = torch.nn.functional.pad(nns.banded_query_key(b, query), (0, pad)).reshape(T, Q)
+    ok = torch.nn.functional.pad(qmask, (0, pad)).reshape(T, Q)
+    lo = torch.searchsorted(kt, torch.where(ok, kq, 3e38).amin(1) - dmax, side="left")
+    hi = torch.searchsorted(kt, torch.where(ok, kq, -3e38).amax(1) + dmax, side="right")
+    start = torch.clamp(((lo + hi - W) // 2) & ~255, 0, kt.shape[0] - W)
+    return ((lo >= start) & (hi <= start + W)).repeat_interleave(Q)[:n]
+
+
+def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
+    """Phase 12: the registration path at bench.py's two workloads. ICP:
+    two frames of render_sequence(2, span=0.15) unprojected with their
+    extrinsics (the truth is the identity), voxel_down_sample(0.02,
+    capacity=ICP_CAPACITY), estimate_normals(30); point-to-plane ICP at dmax
+    0.05, 10 iterations, then 30 from a perturbed start through the band
+    and the exact 1-NN; voxel_down_sample against a CPU copy and against
+    itself; the band's shortfall on the card and on a CPU copy; the banded
+    1-NN at run 1's pose against the exact one. Global: render_sequence(2,
+    span=0.4), voxel_down_sample(0.05, capacity=FPFH_CAPACITY),
+    estimate_normals(30, radius=0.1), FPFH(0.25, 64), RANSAC (dmax 0.07,
+    4096 hypotheses) and FGR, on the bench's own pair (printed: it does not
+    register in the JAX package either) and on frame 0's cloud against a
+    rigidly moved copy of it (gated); FPFH on frame 0's cloud against a CPU
+    copy (fpfh_weight_err's bar). No kernel of csrc/ is on this path:
+    the counts stay 0. Times, a line each, with the card's name and power
+    limit."""
+    import torch
+
+    from open3d_tpu_torch.core import lie, nns
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry.pointcloud import PointCloud
+    from open3d_tpu_torch.geometry.rgbd import pointcloud_from_depth
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.ops.kernels._timing import median_of
+    from open3d_tpu_torch.pipelines import features
+    from open3d_tpu_torch.pipelines import global_registration as gr
+    from open3d_tpu_torch.pipelines import registration as reg
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    eye = torch.eye(4, device=dev)
+
+    def to_cpu(p):
+        return PointCloud(p.positions.cpu(), p.mask.cpu(), {k: v.cpu() for k, v in p.attrs.items()})
+
+    def pose_err(T, truth=eye):
+        rot, trans = lie.pose_distance(T, truth)
+        return {"rot_err": float(rot), "trans_err": float(trans)}
+
+    def summary(r, truth=eye):
+        return {**pose_err(r.transformation, truth), "fitness": float(r.fitness),
+                "inlier_rmse": float(r.inlier_rmse), "iterations": int(r.num_iterations)}
+
+    # ---- 12a. the ICP workload (bench.py:186-258)
+    depths, _, extr, _ = synthetic.render_sequence(2, intrinsic=intr, span=0.15, device=dev)
+    raw = [pointcloud_from_depth(depths[i], intr, extr[i]) for i in range(2)]
+    down = [pc_ops.voxel_down_sample(p, 0.02, capacity=ICP_CAPACITY) for p in raw]
+    vds = {"rows": raw[0].capacity, "points": [int(d.count()) for d in down],
+           "repeat_equal": clouds_equal(down[0], pc_ops.voxel_down_sample(raw[0], 0.02, capacity=ICP_CAPACITY)),
+           "cpu_copy": cloud_diff(down[0], pc_ops.voxel_down_sample(to_cpu(raw[0]), 0.02, capacity=ICP_CAPACITY))}
+    log(f"[12] voxel_down_sample(0.02, capacity {ICP_CAPACITY}): {vds}")
+    check(vds["repeat_equal"], f"voxel_down_sample twice on the card gives one result {vds}")
+    check(vds["cpu_copy"]["mask_equal"] and vds["cpu_copy"]["max_abs_err"] <= VDS_TOL,
+          f"voxel_down_sample on the card vs a CPU copy: equal rows, within {VDS_TOL} {vds}")
+    src, tgt = [pc_ops.estimate_normals(d, max_nn=30) for d in down]
+    est = reg.TransformationEstimationPointToPlane()
+    crit10 = reg.ICPConvergenceCriteria(max_iteration=10, relative_fitness=0.0, relative_rmse=0.0)
+    r1 = reg.icp(src, tgt, 0.05, estimation=est, criteria=crit10)
+    init = lie.se3_exp(torch.tensor([0.02, -0.015, 0.01, 0.03, -0.02, 0.01], device=dev))
+    crit30 = reg.ICPConvergenceCriteria(max_iteration=30)
+    r2 = {b: reg.icp(src, tgt, 0.05, init, est, crit30, nns_backend=b) for b in ("auto", "exact")}
+    icp = {"run1": summary(r1), "run2_start": pose_err(init), "run2_banded": summary(r2["auto"]),
+           "run2_exact": summary(r2["exact"]),
+           "banded_vs_exact_max_abs": float((r2["auto"].transformation
+                                             - r2["exact"].transformation).abs().max())}
+    log(f"[12] ICP (point-to-plane, dmax 0.05): {icp}")
+    for k in ("run1", "run2_banded", "run2_exact"):
+        check(icp[k]["trans_err"] < ICP_POSE_TOL and icp[k]["rot_err"] < ICP_POSE_TOL,
+              f"ICP {k} within {ICP_POSE_TOL} m / rad of the truth {icp}")
+    check(icp["banded_vs_exact_max_abs"] <= BAND_EXACT_TOL, f"banded vs exact ICP {icp}")
+
+    # the band at the identity, as bench.py:254 reads its shortfall, on the
+    # card and on a CPU copy
+    def band(s, t):
+        b = nns.banded_build(t.positions, t.mask, est.corr_extras(t), window=2048)
+        perm = torch.argsort(torch.where(s.mask, nns.banded_query_key(b, s.positions), 3e38), stable=True)
+        return b, s.positions[perm], s.mask[perm]
+
+    b, qs, qm = band(src, tgt)
+    b_cpu, qs_cpu, qm_cpu = band(to_cpu(src), to_cpu(tgt))
+    shortfall = {"card": int(nns.banded_one_nn(b, qs, 0.05, qmask=qm)[3]),
+                 "cpu_copy": int(nns.banded_one_nn(b_cpu, qs_cpu, 0.05, qmask=qm_cpu)[3])}
+    # the banded 1-NN at run 1's final pose against the exact 1-NN on the
+    # card (tests/test_nns.py:97-103), on the tiles whose window was whole;
+    # a query whose distance lies within the expanded form's float32 error
+    # of dmax may fall on either side of the gate
+    pos = lie.transform_points(r1.transformation, qs)
+    idx_b, d2_b, _, short_r1 = nns.banded_one_nn(b, pos, 0.05, qmask=qm)
+    whole = band_whole_windows(b, pos, qm, 0.05) & qm
+    idx_e, d2_e = nns.one_nn_search(pos, tgt.positions, tgt.mask)
+    valid_e = qm & (idx_e >= 0) & (d2_e <= 0.05**2)
+    valid_b = idx_b >= 0
+    edge = (d2_b - 0.05**2).abs() <= 4 * 2.0**-23 * (1.0 + 2.0 * (pos * pos).sum(1))
+    # the band's winner is at least as close as the exact sweep's, both
+    # measured in the difference form (the sweep's own d2 carries the
+    # expanded form's rounding)
+    d2_e_diff = ((pos - tgt.positions[idx_e.clamp(min=0).long()]) ** 2).sum(1)
+    agree = (torch.where(valid_e, idx_e, -1) == idx_b) | (
+        valid_e & valid_b & (d2_b <= d2_e_diff * (1 + 1e-5) + 1e-12))
+    nn1 = {"queries": int(qm.sum()), "whole_window_queries": int(whole.sum()),
+           "shortfall_at_run1_pose": int(short_r1), "gate_edge_queries": int((whole & edge).sum()),
+           "valid_mismatch": int((whole & ~edge & (valid_e != valid_b)).sum()),
+           "winner_mismatch": int((whole & ~edge & ~agree).sum()),
+           "expanded_vs_difference_max_abs_d2": float((d2_e - d2_b)[valid_e & valid_b & (idx_e == idx_b)]
+                                                      .abs().max())}
+    log(f"[12] band shortfall at the identity {shortfall}; banded vs exact 1-NN at run 1's pose {nn1}")
+    check(shortfall["card"] == shortfall["cpu_copy"], f"band shortfall on the card = CPU copy's {shortfall}")
+    check(nn1["valid_mismatch"] == 0 and nn1["winner_mismatch"] == 0 and nn1["whole_window_queries"] > 0,
+          f"banded 1-NN = exact 1-NN on whole windows {nn1}")
+
+    def med(fn):
+        return median_of(lambda: event_ms(fn)[1])
+
+    crit_conv = reg.ICPConvergenceCriteria(max_iteration=icp["run2_banded"]["iterations"])
+
+    def nn_est():
+        idx, _, sel, _ = nns.banded_one_nn(b, qs, 0.05, qmask=qm)
+        return est.compute(qs, {}, tgt, idx, qm & (idx >= 0), None, corr_rows=sel)
+
+    times = {
+        "voxel_down_sample_ms": med(lambda: pc_ops.voxel_down_sample(raw[0], 0.02, capacity=ICP_CAPACITY)),
+        "estimate_normals_ms": med(lambda: pc_ops.estimate_normals(down[0], max_nn=30)),
+        "icp_10_iterations_ms": med(lambda: reg.icp(src, tgt, 0.05, estimation=est, criteria=crit10)),
+        # run 2: 30 iterations, frozen once converged, against the
+        # iterations an early-exit loop would have run
+        "icp_run2_30_iterations_ms": med(lambda: reg.icp(src, tgt, 0.05, init, est, crit30)),
+        "icp_run2_until_converged_ms": med(lambda: reg.icp(src, tgt, 0.05, init, est, crit_conv)),
+        "icp_nn_ms": med(lambda: nns.banded_one_nn(b, qs, 0.05, qmask=qm)),
+        "icp_nn_estimation_ms": med(nn_est),
+    }
+
+    # ---- 12b. FPFH, RANSAC and FGR (bench.py:280-321)
+    depths, _, extr, _ = synthetic.render_sequence(2, intrinsic=intr, span=0.4, device=dev)
+
+    def prep(i):
+        d = pc_ops.voxel_down_sample(pointcloud_from_depth(depths[i], intr, extr[i]), 0.05,
+                                     capacity=FPFH_CAPACITY)
+        return pc_ops.estimate_normals(d, max_nn=30, radius=0.1)
+
+    def fpfh(c):
+        return features.compute_fpfh_feature(c, radius=0.25, max_nn=64)
+
+    def ransac(s, t, fs, ft):
+        return gr.registration_ransac_based_on_feature_matching(
+            s, t, fs, ft, 0.07, criteria=gr.RANSACConvergenceCriteria(max_iteration=4096),
+            key=torch.Generator(device=dev).manual_seed(3))
+
+    def fgr(s, t, fs, ft):
+        return gr.registration_fgr_based_on_feature_matching(
+            s, t, fs, ft, gr.FGROption(maximum_correspondence_distance=0.07))
+
+    def pair(s, t, truth):
+        fs, ft = fpfh(s), fpfh(t)
+        _, mutual = features.correspondences_from_features(fs, ft, True, s.mask, t.mask)
+        return {"points": [int(s.count()), int(t.count())], "mutual_correspondences": int(mutual.sum()),
+                "ransac": summary(ransac(s, t, fs, ft), truth),
+                "fgr": summary(fgr(s, t, fs, ft), truth)}, fs, ft
+
+    c0, c1 = prep(0), prep(1)
+    bench_pair, f0, f1 = pair(c0, c1, eye)
+    log(f"[12] bench.py's FPFH pair (truth: the identity; printed, not gated): {bench_pair}")
+    T_rigid = lie.se3_exp(torch.tensor([0.0, 0.0, 0.0, 0.1, 0.4, 0.2], device=dev))
+    T_rigid[:3, 3] = torch.tensor([0.3, -0.2, 0.5], device=dev)
+    moved = c0.transform(T_rigid)
+    rigid, _, fm = pair(c0, moved, T_rigid)
+    rigid["fpfh_repeat_equal"] = bool(torch.equal(fpfh(c0), f0))
+    log(f"[12] frame 0's cloud against a rigidly moved copy: {rigid}")
+    for k in ("ransac", "fgr"):
+        check(rigid[k]["trans_err"] < GLOBAL_POSE_TOL and rigid[k]["rot_err"] < GLOBAL_POSE_TOL,
+              f"{k} within {GLOBAL_POSE_TOL} m / rad of the truth {rigid}")
+    check(rigid["ransac"]["fitness"] > RANSAC_MIN_FITNESS, f"RANSAC fitness {rigid}")
+    check(rigid["fpfh_repeat_equal"], "FPFH twice on the card gives one result")
+
+    # FPFH through the brute force (the path of these clouds) on the card
+    # against a CPU copy. Each device rounds the expanded d2 its own way, and
+    # FPFH weighs by 1/d2: rows that no bin flip or neighbour-set change
+    # touches must lie within 1e-3 + 200 e / (1 - e) of each other
+    # (fpfh_weight_err)
+    h0 = to_cpu(c0)
+    (i_c, d2_c, _), (i_h, d2_h, _) = (
+        nns.hybrid_search(c.positions, c.positions, 0.25, 64, target_mask=c.mask, grid_threshold=65536)
+        for c in (c0, h0))
+    rows = torch.arange(i_h.shape[0], dtype=torch.int32)
+    # SPFHs over the CPU copy's table: a bin flip moves a row by
+    # 100 / (its neighbours - 1) >= 1.5, rounding by about 1e-5
+    s_c = features._spfh(c0.positions, c0.attrs["normals"], i_h.to(dev), rows.to(dev))[0].cpu()
+    s_h = features._spfh(h0.positions, h0.attrs["normals"], i_h, rows)[0]
+    flip = ((s_c - s_h).abs() > 1e-3).any(1) | ~(i_c.cpu().sort(1).values == i_h.sort(1).values).all(1)
+    kept = h0.mask & ~flip & ~(flip[i_h.clamp(min=0).long()] & (i_h >= 0)).any(1)
+    e, d2_err = fpfh_weight_err(i_c, d2_c, i_h, d2_h)
+    bar = torch.where(e < 1.0, 1e-3 + 200.0 * e / (1.0 - e), torch.inf)
+    err = (f0.cpu() - fpfh(h0)).abs().amax(1).double()
+    fp = {"rows": int(h0.mask.sum()), "flip_or_set_rows": int((flip & h0.mask).sum()),
+          "untouched_rows": int(kept.sum()), "max_abs_d2_err": float(d2_err[kept].max()),
+          "max_weight_err": float(e[kept].max()), "median_bar": float(bar[kept].median()),
+          "max_bar": float(bar[kept].max()), "max_row_err": float(err[kept].max()),
+          "max_row_err_over_bar": float((err / bar)[kept].max()),
+          "weight_gate_differs_rows": int((e.isinf() & kept).sum()),
+          "max_row_err_finite_bar": float(err[kept & bar.isfinite()].max()),
+          "max_row_err_all_rows": float(err[h0.mask].max())}
+    log(f"[12] FPFH (brute force) on the card vs a CPU copy, frame 0's cloud: {fp}")
+    check(fp["untouched_rows"] >= 0.9 * fp["rows"] and fp["max_row_err_over_bar"] <= 1.0,
+          f"FPFH on the card vs a CPU copy within the bar of the tables' d2 {fp}")
+    times.update({
+        "fpfh_ms": med(lambda: fpfh(c0)),
+        "ransac_ms": med(lambda: ransac(c0, moved, f0, fm)),
+        "fgr_ms": med(lambda: fgr(c0, moved, f0, fm)),
+    })
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(all(c == 0 for c in launches.values()), f"no kernel of csrc/ on the registration path {launches}")
+    times["icp_estimation_ms"] = (times["icp_nn_estimation_ms"][0] - times["icp_nn_ms"][0], None)
+    times["icp_other_ms"] = (times["icp_10_iterations_ms"][0] / 10 - times["icp_nn_estimation_ms"][0], None)
+    for name, (ms, spread) in times.items():
+        log(f"[12] time {name} {ms:.4f} ms" + ("" if spread is None else f" (spread {spread:.4f})")
+            + f" | card {smi}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[12] peak device memory of the phase {peak} B | card {smi}")
+    log(f"[12] registration phase {time.perf_counter() - t_start:.1f} s")
+    return {"voxel_down_sample": vds, "icp": icp, "shortfall": shortfall, "banded_1nn": nn1,
+            "bench_fpfh_pair": bench_pair, "rigid_pair": rigid, "fpfh_cpu_copy": fp, "peak_bytes": peak,
+            "times_ms": {k: v[0] for k, v in times.items()}}
+
+
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
@@ -1254,6 +1565,11 @@ def main(argv=None) -> int:
     depths, colors, extr, _ = synthetic.render_sequence(8, intrinsic=intr, span=0.8, device=dev)
     surface = surface_phase(dev, intr, cfg, depths, colors, extr, fr, zero_counts, launch_counts,
                             smi)
+    del depths, colors, extr
+    torch.cuda.empty_cache()
+
+    # ---- 12. the registration path: ICP, FPFH, RANSAC and FGR
+    registration = registration_phase(dev, smi, zero_counts, launch_counts, intr)
 
     kernels = [
         {
@@ -1312,7 +1628,7 @@ def main(argv=None) -> int:
                                    "fragment_stage_median_ms": fr["times"],
                                    "make_fragments_inside_ms": fr["inside_ms"],
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
-                                   "card": smi}))
+                                   "registration": registration, "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,6 +31,15 @@ def pad_axis0(x: torch.Tensor, capacity: int, fill_value) -> torch.Tensor:
     return torch.cat([x, pad], dim=0)
 
 
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s, rounded once in float32 on every device. PyTorch's CUDA
+    kernels multiply by the reciprocal of a Python-number divisor while its
+    CPU kernels divide, so a floor() of the quotient could differ between a
+    tensor on the card and its CPU copy; a 0-d tensor divisor divides on both
+    (as the JAX package does outside jit)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def _expand_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     while mask.ndim < x.ndim:
         mask = mask[..., None]

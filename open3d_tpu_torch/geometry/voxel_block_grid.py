@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from open3d_tpu_torch.core import hashmap as hm
-from open3d_tpu_torch.core.masking import FAR_COORD, compact_indices
+from open3d_tpu_torch.core.masking import FAR_COORD, _div, compact_indices
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
@@ -327,15 +327,6 @@ def integrate(
 # ---------------------------------------------------------------------------
 # Dense block index: a frustum-local block-coord -> payload row volume
 # ---------------------------------------------------------------------------
-
-
-def _div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s, rounded once in float32 on every device. PyTorch's CUDA
-    kernels multiply by the reciprocal of a Python-number divisor while its
-    CPU kernels divide, so a floor() of the quotient could differ between a
-    grid on the card and its CPU copy; a 0-d tensor divisor divides on both
-    (as the JAX package does outside jit)."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 class BlockIndex(NamedTuple):

@@ -409,3 +409,204 @@ def test_sphere_trace_on_the_card_matches_a_cpu_copy(fused):
     assert float(mk.float().mean()) > 0.5 and float((mk == mc).float().mean()) >= 0.999
     dz = (res.depth.cpu() - ref.depth).abs()[mk & mc]
     assert float((dz <= 1e-5).float().mean()) >= 0.999
+
+
+# ---- the registration path (plain PyTorch: no kernel of csrc/ on it) --------
+
+
+@pytest.fixture(scope="module")
+def reg_clouds(cuda):
+    """Two 160x120 frames of the bench's ICP orbit unprojected into the
+    world on the card (voxel 0.02, 30-neighbour normals), and CPU copies."""
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry.pointcloud import PointCloud
+    from open3d_tpu_torch.geometry.rgbd import pointcloud_from_depth
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+
+    d, _, e, intr = synthetic.render_sequence(2, span=0.15, device=cuda)
+    raw = [pointcloud_from_depth(d[i], intr, e[i]) for i in range(2)]
+    card = [pc_ops.estimate_normals(pc_ops.voxel_down_sample(p, 0.02), max_nn=30) for p in raw]
+
+    def cpu(p):
+        return PointCloud(p.positions.cpu(), p.mask.cpu(), {k: v.cpu() for k, v in p.attrs.items()})
+
+    return raw, card, [cpu(p) for p in card], cpu
+
+
+def test_voxel_down_sample_is_deterministic_and_matches_a_cpu_copy(reg_clouds):
+    """Two calls on the card give equal clouds (sequential segment sums, no
+    float atomics); a CPU copy gives the same mask and row order and means
+    within 1e-6."""
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+
+    raw, _, _, cpu = reg_clouds
+    a = pc_ops.voxel_down_sample(raw[0], 0.02)
+    b = pc_ops.voxel_down_sample(raw[0], 0.02)
+    assert torch.equal(a.positions, b.positions) and torch.equal(a.mask, b.mask)
+    c = pc_ops.voxel_down_sample(cpu(raw[0]), 0.02)
+    assert torch.equal(a.mask.cpu(), c.mask) and int(c.count()) > 1000
+    assert float((a.positions.cpu() - c.positions)[c.mask].abs().max()) <= 1e-6
+
+
+def _expanded_tol(q, t):
+    """Per-query bound on how far two float32 evaluations of the expanded
+    distance |q|^2 + |t|^2 - 2 q.t may each stray from the exact one:
+    4 ulps of |q|^2 + |t|^2 (the largest valid target's), ~1e-5 m^2 at the
+    room's scale. TF32 products would stray by ~2^-11 of it."""
+    tt = (t.double() ** 2).sum(-1)
+    return 4 * 2.0**-23 * ((q.double() ** 2).sum(-1) + tt[tt < 1e6].max())
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_nearest_neighbours_match_a_cpu_copy(reg_clouds, k):
+    """1-NN and kNN on the card against a CPU copy: distances within both
+    devices' rounding of the expanded form (_expanded_tol twice), indices
+    equal but where the two winners' float64 distances lie within it. The
+    card's expanded-form 1-NN distances agree with the difference form
+    within _expanded_tol (the TF32 guard)."""
+    from open3d_tpu_torch.core import nns
+
+    _, card, host, _ = reg_clouds
+    m = host[0].mask
+    q, t = host[0].positions[m], host[1].positions
+    tol = 2 * _expanded_tol(q, t)[:, None]
+    if k == 1:
+        i_c, d_c = nns.one_nn_search(card[0].positions, card[1].positions, card[1].mask)
+        i_h, d_h = nns.one_nn_search(host[0].positions, host[1].positions, host[1].mask)
+        diff = nns._sq3(card[0].positions - card[1].positions[i_c.long()]).cpu()
+        assert bool(((diff - d_c.cpu())[m].abs().double() <= tol[:, 0] / 2).all())
+        i_c, d_c, i_h, d_h = i_c[:, None], d_c[:, None], i_h[:, None], d_h[:, None]
+    else:
+        i_c, d_c = nns.knn_search(card[0].positions, card[1].positions, k, card[1].mask)
+        i_h, d_h = nns.knn_search(host[0].positions, host[1].positions, k, host[1].mask)
+    assert bool(((d_c.cpu()[m] - d_h[m]).abs().double() <= tol).all())
+    differ = (i_c.cpu() != i_h)[m]
+    dc = ((q.double()[:, None] - t.double()[i_c.cpu()[m].long()]) ** 2).sum(-1)
+    dh = ((q.double()[:, None] - t.double()[i_h[m].long()]) ** 2).sum(-1)
+    assert bool(((dc - dh).abs() <= tol)[differ].all())
+    assert float(differ.any(1).double().mean()) < 0.01
+
+
+def _same_sets(a, b):
+    """(N,) rows whose neighbour index sets agree."""
+    return (a.cpu().sort(1).values == b.cpu().sort(1).values).all(1)
+
+
+def test_estimate_normals_matches_a_cpu_copy(reg_clouds):
+    """Wherever the card and the CPU copy find the same neighbours (a
+    neighbour at the k-th place can change with the expanded form's
+    rounding, on under 1 % of the rows) and the covariance defines a
+    normal (its two smallest eigenvalues apart by over 1e-3 of the largest;
+    a rim point with neighbours on a line has none), |n . n'| > 1 - 1e-5."""
+    from open3d_tpu_torch.core import nns
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+
+    _, card, host, _ = reg_clouds
+    m = host[0].mask
+    for kw in (dict(max_nn=30), dict(max_nn=30, radius=0.1)):
+        if "radius" in kw:
+            i_c = nns.hybrid_search(card[0].positions, card[0].positions, 0.1, 30, card[0].mask)[0]
+            i_h = nns.hybrid_search(host[0].positions, host[0].positions, 0.1, 30, host[0].mask)[0]
+        else:
+            i_c = nns.knn_search(card[0].positions, card[0].positions, 30, card[0].mask)[0]
+            i_h = nns.knn_search(host[0].positions, host[0].positions, 30, host[0].mask)[0]
+        same = _same_sets(i_c, i_h) & m
+        assert float(same.double().sum() / m.double().sum()) > 0.99
+        ev = torch.linalg.eigvalsh(pc_ops.estimate_covariances(host[0], **kw).attrs["covariances"].double())
+        posed = same & (ev[:, 1] - ev[:, 0] > 1e-3 * ev[:, 2])
+        assert float(posed.double().sum() / m.double().sum()) > 0.98
+        a = pc_ops.estimate_normals(card[0], **kw).attrs["normals"].cpu()
+        b = pc_ops.estimate_normals(host[0], **kw).attrs["normals"]
+        assert float((a * b).sum(-1).abs()[posed].min()) > 1 - 1e-5
+
+
+def _fpfh_bar(idx_a, d2_a, idx_b, d2_b):
+    """(N,) float64: how far two FPFH rows may lie apart when their SPFHs
+    agree and only the neighbour tables' d2 differ, plus 1e-3. The
+    aggregated part is 100 N / D, N = sum_k s_k w_k <= D = sum_k S_k w_k
+    with w_k = 1 / d2_k; weights off by a factor within 1 +- e move N and D
+    each by at most e D, so 100 N / D moves by at most 200 e / (1 - e). e is
+    a row's largest |d2_a / d2_b - 1| over the neighbours both tables weigh
+    (rows with the same neighbour set); inf where one table weighs a
+    neighbour the other does not."""
+    idx_a, d2_a, idx_b, d2_b = (x.cpu() for x in (idx_a, d2_a, idx_b, d2_b))
+    n = idx_a.shape[0]
+    ia, oa = torch.sort(idx_a, 1)
+    ib, ob = torch.sort(idx_b, 1)
+    da, db = torch.gather(d2_a, 1, oa).double(), torch.gather(d2_b, 1, ob).double()
+    nbr = (ia >= 0) & (ia != torch.arange(n)[:, None])
+    wa, wb = da > 1e-12, db > 1e-12
+    e = torch.where(nbr & wa & wb, (da / torch.where(wb, db, 1.0) - 1.0).abs(), 0.0)
+    e = torch.where(nbr & (wa != wb), torch.inf, e).amax(1)
+    return torch.where(e < 1.0, 1e-3 + 200.0 * e / (1.0 - e), torch.inf)
+
+
+@pytest.mark.parametrize("path", ["brute", "grid"])
+def test_fpfh_matches_a_cpu_copy(reg_clouds, path, monkeypatch):
+    """The bench's FPFH settings (voxel 0.05, normals within 0.1, FPFH radius
+    0.25 and 64 neighbours) on the card and on a CPU copy of the cloud: at
+    least 99.99 % of the pairs fall in the same bins and 99 % of the rows
+    find the same neighbours; two calls on the card give one result. Every
+    row that no differing pair touches agrees within 1e-3 when both devices
+    aggregate over one neighbour table, the CPU copy's. On each device's own
+    table, the rows that no differing pair or neighbour set touches agree
+    within 1e-3 through the hash grid (difference-form distances), and
+    through the brute force within _fpfh_bar of the two tables' d2 (each
+    device rounds the expanded form its own way)."""
+    from open3d_tpu_torch.core import nns
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.pipelines import features
+
+    raw, _, _, cpu = reg_clouds
+    c = pc_ops.estimate_normals(pc_ops.voxel_down_sample(raw[0], 0.05), max_nn=30, radius=0.1)
+    h = cpu(c)
+    thr = 1 if path == "grid" else 65536
+    kw = dict(radius=0.25, max_nn=64, nns_grid_threshold=thr, nns_max_per_cell=256)
+    f_c = features.compute_fpfh_feature(c, **kw)
+    assert torch.equal(f_c, features.compute_fpfh_feature(c, **kw))
+    f_h = features.compute_fpfh_feature(h, **kw)
+    grid = dict(grid_threshold=thr, max_per_cell=256)
+    table = nns.hybrid_search(h.positions, h.positions, 0.25, 64, target_mask=h.mask, **grid)
+    i_c, d2_c, _ = nns.hybrid_search(c.positions, c.positions, 0.25, 64, target_mask=c.mask, **grid)
+    idx = table[0]
+    same = _same_sets(i_c, idx)
+    assert float(same[h.mask].double().mean()) > 0.99
+    safe = idx.clamp(min=0).long()
+    ok = (idx >= 0) & (idx != torch.arange(len(idx))[:, None])
+    pos, nrm = h.positions, h.attrs["normals"]
+    dev = c.positions.device
+    f_dev = [features._pair_features(p[:, None], n[:, None], p[safe.to(p.device)], n[safe.to(p.device)])
+             for p, n in ((pos, nrm), (pos.to(dev), nrm.to(dev)))]
+    differ = torch.zeros_like(ok)
+    for j, (lo, hi) in enumerate(((-3.141592653589793, 3.141592653589793), (-1.0, 1.0), (-1.0, 1.0))):
+        b_h = features._bin11(f_dev[0][j], lo, hi).argmax(-1)
+        b_c = features._bin11(f_dev[1][j], lo, hi).argmax(-1).cpu()
+        differ |= ok & f_dev[0][4] & (b_h != b_c)
+    assert int(differ.sum()) <= 1e-4 * int((ok & f_dev[0][4]).sum())
+    own = differ.any(1)  # a row's SPFH: its pairs
+    spfh_touched = own | (own[safe] & (idx >= 0)).any(1)
+    touched = spfh_touched | ~same | (~same[safe] & (idx >= 0)).any(1)
+    assert float((~touched)[h.mask].double().mean()) > 0.9
+    bar = torch.full((len(idx),), 1e-3, dtype=torch.float64) if path == "grid" else _fpfh_bar(i_c, d2_c, *table[:2])
+    row_err = (f_c.cpu() - f_h).abs().amax(1).double()
+    assert bool((row_err <= bar)[~touched].all()), (float(row_err[~touched].max()), float(bar[~touched].min()))
+
+    # both devices aggregating over the CPU copy's table: within 1e-3
+    on_card = tuple(x.to(dev) for x in table)
+    monkeypatch.setattr(nns, "hybrid_search", lambda *a, **k: on_card)
+    f_s = features.compute_fpfh_feature(c, **kw)
+    assert float((f_s.cpu() - f_h)[~spfh_touched].abs().max()) <= 1e-3
+
+
+def test_icp_matches_a_cpu_copy(reg_clouds):
+    """Banded point-to-plane ICP on the card and on a CPU copy: poses within
+    1e-4 elementwise, fitness within 2/N."""
+    from open3d_tpu_torch.pipelines import registration as reg
+
+    _, card, host, _ = reg_clouds
+    crit = reg.ICPConvergenceCriteria(max_iteration=10)
+    a = reg.icp(card[0], card[1], 0.05, criteria=crit, nns_backend="banded")
+    b = reg.icp(host[0], host[1], 0.05, criteria=crit, nns_backend="banded")
+    assert float((a.transformation.cpu() - b.transformation).abs().max()) <= 1e-4
+    assert abs(float(a.fitness) - float(b.fitness)) <= 2.0 / host[0].capacity
+    assert float(a.fitness) > 0.5

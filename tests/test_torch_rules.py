@@ -111,6 +111,28 @@ def test_factories_raise_without_cuda(monkeypatch):
     assert float(intr.intrinsic_matrix_on("cpu")[0, 2]) == 8.0
 
 
+def test_registration_results_are_made_where_the_clouds_are(monkeypatch):
+    """A RegistrationResult built without num_iterations makes it on the
+    card, like every creation entry point; the registration functions make
+    their results on the clouds' device (here the CPU, named)."""
+    from open3d_tpu_torch.geometry.pointcloud import PointCloud
+    from open3d_tpu_torch.pipelines import global_registration as gr
+    from open3d_tpu_torch.pipelines import registration as reg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reg.RegistrationResult(torch.eye(4), torch.ones(()), torch.zeros(()))
+    pts = torch.randn((64, 3), generator=torch.Generator().manual_seed(0))
+    cloud = PointCloud.create(pts, device="cpu")
+    feats = torch.rand((64, 33), generator=torch.Generator().manual_seed(1))
+    for r in (reg.evaluate_registration(cloud, cloud, 0.05),
+              gr.registration_ransac_based_on_feature_matching(
+                  cloud, cloud, feats, feats, 0.05, criteria=gr.RANSACConvergenceCriteria(512)),
+              gr.registration_fgr_based_on_feature_matching(cloud, cloud, feats, feats)):
+        assert {t.device.type for t in (r.transformation, r.fitness, r.inlier_rmse,
+                                        r.num_iterations)} == {"cpu"}
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -489,6 +511,7 @@ def test_probe_wrappers_refuse_indices_out_of_range():
 QUEUED = {
     "geometry.voxel_block_grid": {"extract_triangle_mesh": 7},
     "io": {"read_triangle_mesh": 7, "write_triangle_mesh": 7},
+    "ops.pointcloud": {"extrude_linear": 10, "extrude_rotation": 10},
     "pipelines.reconstruction": {"register_fragments": 9, "refine_registration": 9,
                                  "integrate_scene": 9, "run_system": 9, "extract_scene_mesh": 9},
 }
