@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the dense-SLAM
 frame step, stage 1 of the offline reconstruction system (make_fragments),
-the primitive, gather and march probes that scripts/ ran on the TPU, and
-the registration path (ICP, FPFH, RANSAC, FGR).
+the primitive, gather and march probes that scripts/ ran on the TPU, the
+registration path (ICP, FPFH, RANSAC, FGR), and the whole offline system
+(run_system) with its scene mesh.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -68,7 +69,20 @@ Phases:
      within 0.05 m / rad; FPFH on frame 0's cloud against a CPU copy,
      within the bar that the two neighbour tables' d2 set; the times a line
      each (the 30-iteration ICP beside the iterations it needed) and the
-     peak memory.
+     peak memory;
+ 13. the offline system end to end at ReconstructionConfig's defaults:
+     run_system over 120 frames of the synthetic room (640x480, span 0.4)
+     in three 40-frame fragments (K3 once a fragment frame), registration
+     (FPFH, RANSAC on the non-adjacent pair, ICP, two-pass optimisation),
+     refinement and the scene integrate into a 16^3 grid of 40 000 blocks
+     (K1 once a frame), counted like phase 5; then extract_scene_mesh.
+     Gated: the artifacts, the trajectory within 0.05 m ATE of the truth,
+     the scene mesh on the scene's SDF at the default capacity and at one
+     that holds the whole surface, and phase 8's fragment grid meshed and
+     clustered on the card against a CPU copy. Each stage's time, the peak
+     memory, the edges, the RANSAC pair, the fragment point counts and
+     ICP's counted iterations are printed; then run_system at span 1.2,
+     where adjacent fragments lie 0.4 rad apart, printed, not gated.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -137,6 +151,7 @@ BAND_EXACT_TOL = 5e-4  # banded vs exact ICP pose, elementwise, tests/test_nns.p
 GLOBAL_POSE_TOL = 0.05  # m and rad, tests/test_global_registration.py:90-93
 RANSAC_MIN_FITNESS = 0.7  # the same test's bar
 VDS_TOL = 1e-6  # voxel means on the card vs a CPU copy (sequential sums on both)
+SCENE_ATE_TOL = 0.05  # m, tests/test_reconstruction.py:54
 ICP_CAPACITY = 40960  # voxel_down_sample capacities of bench.py's ICP and FPFH workloads
 FPFH_CAPACITY = 16384
 # how a kernel's ms (warm, cold, floor) is read; the plain versions' and
@@ -1145,6 +1160,347 @@ def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
             "times_ms": {k: v[0] for k, v in times.items()}}
 
 
+def mesh_on_sdf(mesh, world_to_frame0, lie, synthetic) -> dict:
+    """|scene SDF| at the vertices the mesh's live triangles reference
+    (the mesh in frame 0's coordinates)."""
+    import torch
+
+    used = torch.zeros(mesh.vertices.shape[0], dtype=torch.bool, device=mesh.vertices.device)
+    used[mesh.triangles[mesh.triangle_mask].reshape(-1).long()] = True
+    v = mesh.vertices[used & mesh.vertex_mask]
+    sdf = synthetic.default_scene_sdf(lie.transform_points(lie.invert_se3(world_to_frame0),
+                                                           v)).abs()
+    return {"vertices": int(v.shape[0]), "triangles": int(mesh.num_triangles()),
+            "sdf_median_m": float(sdf.median()), "sdf_q90_m": float(torch.quantile(sdf, 0.9))}
+
+
+def mesh_to(mesh, dev):
+    import dataclasses
+
+    return dataclasses.replace(
+        mesh, vertices=mesh.vertices.to(dev), triangles=mesh.triangles.to(dev),
+        vertex_mask=mesh.vertex_mask.to(dev), triangle_mask=mesh.triangle_mask.to(dev),
+        vertex_attrs={k: v.to(dev) for k, v in mesh.vertex_attrs.items()}, triangle_attrs={})
+
+
+def trajectory_against_truth(traj, graph, extr, fragment_size: int, rc, lie):
+    """ATE and the largest per-frame errors of a run_system trajectory
+    against the truth (frame i -> frame 0), and each scene edge's transform
+    against the fragments' true relative pose."""
+    import numpy as np
+    import torch
+
+    dev = extr.device
+    truth = (extr[0] @ lie.invert_se3(extr)).cpu().numpy()
+    rot, trans = lie.pose_distance(torch.as_tensor(traj, device=dev),
+                                   torch.as_tensor(truth, device=dev))
+    P = truth[::fragment_size]
+    edges = []
+    for k, (s, t) in enumerate(graph.edges.tolist()):
+        X_true = torch.as_tensor(np.linalg.inv(P[s]) @ P[t], device=dev)
+        r, tr = lie.pose_distance(graph.transformations[k].to(dev), X_true)
+        edges.append({"edge": [s, t], "kept": bool(graph.edge_valid[k]),
+                      "loop": bool(graph.uncertain[k]), "rot_err": float(r),
+                      "trans_err": float(tr)})
+    res = {"ate_m": rc.absolute_trajectory_error(traj, truth), "max_rot_err": float(rot.max()),
+           "max_trans_err": float(trans.max()), "edges_kept": int(graph.edge_valid.sum()),
+           "edges": len(edges)}
+    return res, edges
+
+
+def scene_k1_parity(vbg, args: tuple, frame: int) -> dict:
+    """K1 against its plain version at the shapes integrate_scene gives it:
+    scene frame `frame`'s work list as the main path passed it to the kernel
+    (`args`, after the payload: rows and coords of frame_block_capacity 8192
+    entries, mostly dump rows, d21, rgb24, the intrinsic, the extrinsic and
+    the scalars), replayed on two
+    copies of the 40 000-block scene grid that run_system returned (the rows
+    it named are still theirs). The kernel on one, the plain version on the
+    other: bit parity on the live rows, the dump row zero, and no row
+    outside the work list changed, in either; then both timed there."""
+    import torch
+
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.ops.kernels import integrate2 as k1
+    from open3d_tpu_torch.ops.kernels._timing import device_ms, median_of
+
+    C = vbg.capacity
+    rows, _, d21, rgb24 = args[:4]
+    live = rows[rows < C].long()
+    in_list = torch.zeros(C + 1, dtype=torch.bool, device=rows.device)
+    in_list[live] = True
+    states = {}
+    for name, fn in (("kernel", k1.integrate_blocks_v2), ("plain", k1.integrate_blocks_plain)):
+        tw, col = vbg.tw.clone(), vbg.color.clone()
+        fn(tw, col, *args)
+        torch.cuda.synchronize()
+        changed = ((tw.reshape(C + 1, -1) != vbg.tw.reshape(C + 1, -1)).any(1)
+                   | (col.reshape(C + 1, -1) != vbg.color.reshape(C + 1, -1)).any(1))
+        check(not bool(changed[~in_list].any()), f"K1 ({name}) at scene frame {frame}: "
+              f"{int(changed[~in_list].sum())} rows outside the work list changed")
+        check(int(tw[C].abs().sum()) == 0 and int(col[C].abs().sum()) == 0,
+              f"K1 ({name}) at scene frame {frame}: the dump row stays zero")
+        states[name] = (tw, col)
+    (tw_a, col_a), (tw_b, col_b) = states["kernel"], states["plain"]
+    par = row_parity(vbg_mod, live, tw_a, col_a, tw_b, col_b)
+    check_bit_parity(f"K1 at scene frame {frame}", par)
+    ms, spread = median_of(lambda: device_ms(lambda: k1.integrate_blocks_v2(tw_a, col_a, *args),
+                                             reps=20))
+    plain_ms = device_ms(lambda: k1.integrate_blocks_plain(tw_b, col_b, *args), reps=3)
+    n_bytes = live.numel() * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
+    bound_ms, bound_by = bound(n_bytes, live.numel() * 4096 * K1_OPS_VOXEL)
+    res = {"frame": frame, "entries": rows.numel(), "live": live.numel(), "parity": par,
+           "ms": ms, "spread_ms": spread, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log(f"[13] K1 at scene frame {frame}'s work list (the main path's arguments, replayed on "
+        f"copies of the scene grid): {res}")
+    return res
+
+
+def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts, launch_counts,
+                smi: str, frag: dict, whole_capacity: int = 16_000_000, k1_frame: int = 60,
+                **cfg_overrides) -> dict:
+    """Phase 13: the offline system end to end through run_system, then
+    extract_scene_mesh, at ReconstructionConfig's defaults: `n_frames`
+    frames of the synthetic room (640x480 on the card) in fragments of 40
+    (K3 once a frame), registration and refinement, the scene integrate into
+    a 16^3 grid of 40 000 blocks (K1 once a frame). Gates: the launch
+    counts, the artifacts, the trajectory against the truth (ATE), the scene
+    mesh on the scene's SDF at the default capacity and at one that holds
+    the whole surface, and the mesh of phase 8's 8^3 fragment grid (`frag`)
+    on the card against a CPU copy. Prints each stage's wall time (host
+    clock, a device sync on both sides), the peak memory, the edges kept,
+    the RANSAC pair, the fragment point counts against the registration
+    capacity, and ICP's counted iterations against those run. K1 is held
+    against its plain version on scene frame `k1_frame`'s work list
+    (scene_k1_parity)."""
+    import torch
+
+    from open3d_tpu_torch import io as rio
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.ops import mesh as mops
+    from open3d_tpu_torch.ops.kernels import integrate2 as k1
+    from open3d_tpu_torch.pipelines import features
+    from open3d_tpu_torch.pipelines import global_registration as gr
+    from open3d_tpu_torch.pipelines import pose_graph as pg
+    from open3d_tpu_torch.pipelines import reconstruction as rc
+    from open3d_tpu_torch.pipelines import registration as reg
+
+    t_start = time.perf_counter()
+    depths, colors, extr, _ = synthetic.render_sequence(n_frames, intrinsic=intr, span=span,
+                                                        device=dev)
+    seq = MemorySequence(intr, depths, colors)
+    rcfg = rc.ReconstructionConfig(path_output=out_dir, **cfg_overrides)
+    n_frag = -(-n_frames // rcfg.fragment_size)
+
+    # stage times and what the stages saw, through spies on the module
+    # attributes run_system and the stages call
+    stages = ("make_fragments", "register_fragments", "refine_registration", "integrate_scene")
+    spied = {**dict.fromkeys(stages, rc), "_odometry_pair": rc, "integrate_scene_frame": rc,
+             "global_optimization": pg, "compute_fpfh_feature": features, "icp": reg,
+             "registration_ransac_based_on_feature_matching": gr}
+    originals = {name: getattr(mod, name) for name, mod in spied.items()}
+    stage_ms = {}
+    inside_ms = {name: {} for name in stages}  # each stage's time by the spied calls in it
+    current = [None]
+    icp_calls, ransac_calls = [], []
+
+    def timed(name):
+        def run(*a, **kw):
+            if name in stages:
+                current[0] = name
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[name](*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if name in stages:
+                stage_ms[name] = ms
+                return out
+            inside = inside_ms[current[0]]
+            inside[name] = inside.get(name, 0.0) + ms
+            if name == "icp":
+                crit = kw.get("criteria", a[5] if len(a) > 5 else reg.ICPConvergenceCriteria())
+                icp_calls.append({"counted": int(out.num_iterations), "run": crit.max_iteration,
+                                  "ms": ms})
+            elif name.startswith("registration_ransac"):
+                ransac_calls.append((out, ms))
+            return out
+        return run
+
+    # K1's arguments at scene frame `k1_frame`, kept (references only) for
+    # its parity check at these shapes after the run
+    k1_launch = k1.integrate_blocks_v2
+    k1_calls, k1_args = [0], []
+
+    def k1_spy(*a, **kw):
+        if k1_calls[0] == k1_frame:
+            k1_args.append(a[2:])  # past the grid's own tw and colour
+        k1_calls[0] += 1
+        return k1_launch(*a, **kw)
+
+    # the wrapper counts through its module's name, which now names the
+    # spy: both share one attribute dict, so the count lands where
+    # launch_counts reads it
+    k1_spy.__dict__ = k1_launch.__dict__
+    for name, mod in spied.items():
+        setattr(mod, name, timed(name))
+    k1.integrate_blocks_v2 = k1_spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        vbg, traj, graph = rc.run_system(seq, rcfg, device=dev)
+        torch.cuda.synchronize()
+        stage_ms["run_system"] = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    finally:
+        k1.integrate_blocks_v2 = k1_launch
+        for name, mod in spied.items():
+            setattr(mod, name, originals[name])
+    for name in stages:
+        inside_ms[name]["rest"] = stage_ms[name] - sum(inside_ms[name].values())
+    log(f"[13] run_system over {n_frames} frames: {json.dumps(stage_ms)} ms, launches "
+        f"{launches}, peak {peak_bytes} B above the {base_bytes} B held before | card {smi}")
+    log(f"[13] inside each stage, ms: {json.dumps(inside_ms)}")
+    check(launches["fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
+    check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
+    check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
+          and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
+    check(len(k1_args) == 1, f"K1 reached scene frame {k1_frame} ({k1_calls[0]} calls)")
+    k1_scene = scene_k1_parity(vbg, k1_args.pop(), k1_frame)
+    torch.cuda.empty_cache()
+
+    # ---- artifacts
+    frag_dir = os.path.join(out_dir, "fragments")
+    names = [f"fragment_{f:03d}.{x}" for f in range(n_frag) for x in ("ply", "json")]
+    scene = [os.path.join(out_dir, "scene", f"{x}_registration.json") for x in ("global", "refined")]
+    check(all(os.path.isfile(os.path.join(frag_dir, n)) for n in names)
+          and all(os.path.isfile(p) for p in scene), f"artifacts under {out_dir}")
+    for p in scene:
+        back = pg.read_pose_graph(p, device=dev)
+        check(back.poses.shape[0] == n_frag, f"{p}: {back.poses.shape[0]} nodes")
+    log_traj = rio.read_trajectory_log(os.path.join(out_dir, "trajectory.log"))
+    check(log_traj.shape == traj.shape and float(abs(log_traj - traj).max()) <= 1e-6,
+          "trajectory.log reads back the trajectory")
+    counts = [int(rio.read_point_cloud(os.path.join(frag_dir, f"fragment_{f:03d}.ply"),
+                                       device=dev).count()) for f in range(n_frag)]
+    log(f"[13] fragment points {counts} against registration_point_capacity "
+        f"{rcfg.registration_point_capacity}: registration reads the first "
+        f"{[round(min(1.0, rcfg.registration_point_capacity / max(n, 1)), 3) for n in counts]}"
+        " of each")
+
+    # ---- the trajectory and the scene edges against the truth
+    traj_res, edges = trajectory_against_truth(traj, graph, extr, rcfg.fragment_size, rc, lie)
+    ransac = [{"fitness": float(r.fitness), "inlier_rmse": float(r.inlier_rmse), "ms": ms}
+              for r, ms in ransac_calls]
+    log(f"[13] trajectory {traj_res}; scene edges against the truth {edges}; RANSAC {ransac}")
+    log(f"[13] ICP iterations counted / run, a call each: "
+        f"{[(c['counted'], c['run']) for c in icp_calls]} "
+        f"({sum(c['counted'] for c in icp_calls)} of {sum(c['run'] for c in icp_calls)})")
+    check(traj_res["ate_m"] < SCENE_ATE_TOL, f"ATE {traj_res}")
+
+    # ---- the scene mesh at the default capacity: soup, index sort, clusters
+    inner = {"extract_triangle_mesh": vbg_mod, "_index_soup": vbg_mod,
+             "cluster_connected_triangles": mops}
+    inner_orig = {n: getattr(m, n) for n, m in inner.items()}
+    inner_ms = dict.fromkeys(inner, 0.0)
+
+    def timed_inner(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner_orig[name](*a, **kw)
+            torch.cuda.synchronize()
+            inner_ms[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    for name, mod in inner.items():
+        setattr(mod, name, timed_inner(name))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = rc.extract_scene_mesh(vbg)
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        mesh_peak = torch.cuda.max_memory_allocated()
+    finally:
+        for name, mod in inner.items():
+            setattr(mod, name, inner_orig[name])
+    mesh_times = {"extract_scene_mesh": mesh_ms,
+                  "soup": inner_ms["extract_triangle_mesh"] - inner_ms["_index_soup"],
+                  "index_sort": inner_ms["_index_soup"],
+                  "clusters": inner_ms["cluster_connected_triangles"]}
+    at_default = mesh_on_sdf(mesh, extr[0], lie, synthetic)
+    log(f"[13] extract_scene_mesh ms {json.dumps(mesh_times)}, peak {mesh_peak} B | card {smi}")
+
+    # the whole surface, and the clusters below and at the fixed point
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = vbg_mod.extract_triangle_mesh(vbg, triangle_capacity=whole_capacity)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    surface = mesh_on_sdf(whole, extr[0], lie, synthetic)
+    raw = vbg_mod.extract_triangle_mesh(vbg, triangle_capacity=400_000)
+    _, hops = mops._propagate_labels(raw, 1 << 20, check_every=1)
+    n_512 = int(mops.cluster_connected_triangles(raw)[1])
+    n_fix = int(mops.cluster_connected_triangles(raw, max_iterations=hops)[1])
+    mesh_res = {"default": at_default, "whole_surface": surface, "whole_ms": whole_ms,
+                "default_keeps": min(1.0, 400_000 / max(surface["triangles"], 1)),
+                "clusters_at_512": n_512, "clusters_at_fixed_point": n_fix,
+                "fixed_point_hops": hops, "active_blocks": int(vbg.num_active_blocks())}
+    log(f"[13] scene mesh {mesh_res}")
+    vox = rcfg.voxel_size
+    for k in ("default", "whole_surface"):
+        check(mesh_res[k]["sdf_median_m"] < vox and mesh_res[k]["sdf_q90_m"] < 2 * vox,
+              f"scene mesh ({k}) on the scene's SDF {mesh_res}")
+    check(surface["triangles"] < whole_capacity, f"the capacity holds the surface {surface}")
+    check(surface["triangles"] >= 100_000, f"the whole surface's triangles {surface}")
+    del whole, raw, mesh
+
+    # ---- phase 8's fragment grid: mesh and clusters on the card against a
+    # CPU copy
+    grid = frag["grid"]
+    host = vbg_mod.VoxelBlockGrid(grid.table.cpu(), grid.tw.cpu(), grid.color.cpu(),
+                                  grid.voxel_size, grid.block_resolution, grid.sdf_trunc)
+    out = {}
+    for name, g in (("card", grid), ("cpu", host)):
+        t0 = time.perf_counter()
+        m = vbg_mod.extract_triangle_mesh(g)
+        ids = mops.cluster_connected_triangles(m)[0]
+        kept = mops.remove_small_components(m, min_triangles=32)
+        if name == "card":
+            torch.cuda.synchronize()
+        out[name] = (mesh_to(m, "cpu"), ids.cpu(), kept.triangle_mask.cpu(),
+                     (time.perf_counter() - t0) * 1e3)
+    (ma, ia, ka, ta), (mb, ib, kb, tb) = out["card"], out["cpu"]
+    cmp = {"triangles": int(mb.num_triangles()), "kept": int(kb.sum()),
+           "max_abs_dvertex": float((ma.vertices - mb.vertices).abs().max()),
+           "max_abs_dcolour": float((ma.vertex_attrs["colors"]
+                                     - mb.vertex_attrs["colors"]).abs().max()),
+           "card_ms": ta, "cpu_ms": tb}
+    log(f"[13] fragment grid's mesh, card vs a CPU copy: {cmp}")
+    for f in ("triangles", "vertex_mask", "triangle_mask"):
+        check(torch.equal(getattr(ma, f), getattr(mb, f)), f"fragment mesh {f}, card vs CPU")
+    check(torch.equal(ia, ib) and torch.equal(ka, kb), "cluster ids and kept mask, card vs CPU")
+    check(cmp["max_abs_dvertex"] <= 1e-6 and cmp["max_abs_dcolour"] <= 1e-6,
+          f"fragment mesh vertices and colours, card vs CPU {cmp}")
+    check(cmp["triangles"] > 10000, f"the fragment grid's mesh {cmp}")
+    log(f"[13] scene phase {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches, "stage_ms": stage_ms, "inside_ms": inside_ms,
+            "peak_bytes": peak_bytes, "k1": k1_scene,
+            "trajectory": traj_res, "edges": edges, "ransac": ransac,
+            "icp_iterations": [(c["counted"], c["run"]) for c in icp_calls],
+            "fragment_points": counts, "mesh_ms": mesh_times, "mesh": mesh_res,
+            "fragment_mesh_card_vs_cpu": cmp}
+
+
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
@@ -1570,6 +1926,18 @@ def main(argv=None) -> int:
 
     # ---- 12. the registration path: ICP, FPFH, RANSAC and FGR
     registration = registration_phase(dev, smi, zero_counts, launch_counts, intr)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the offline system end to end: run_system over 120 frames of
+    # the synthetic room in 3 fragments, then the scene mesh; phase 8's
+    # fragment grid meshed on the card and on a CPU copy. Span 0.4: adjacent
+    # fragments' first frames 0.13 rad apart. register_fragments starts an
+    # adjacent pair's ICP from the identity, as the JAX package does, and at
+    # phase 8's pace (span 1.2, 0.4 rad apart) neither package registers
+    # them (ROADMAP.md §3 fault 11); a wider orbit walks into the column
+    with tempfile.TemporaryDirectory() as out_dir:
+        scene = scene_phase(dev, intr, 120, 0.4, out_dir, zero_counts, launch_counts, smi, fr)
+    torch.cuda.empty_cache()
 
     kernels = [
         {
@@ -1577,7 +1945,12 @@ def main(argv=None) -> int:
             "source": "open3d_tpu_torch/csrc/integrate2.cu",
             "replaces": "open3d_tpu/ops/pallas/integrate2.py:128",
             "launches": launches["integrate_blocks_v2"],
-            "max_abs_err": k1_par["max_abs_err"],
+            "launches_by_path": {"slam_step (phase 5)": launches["integrate_blocks_v2"],
+                                 "run_system (phase 13)":
+                                     scene["launches"]["integrate_blocks_v2"]},
+            "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
+            "parity_by_path": {"slam_step (phase 3)": k1_par,
+                               "run_system (phase 13)": scene["k1"]},
             "ms": k1_ms, "kernel_ms": k1_ms, "cold_ms": k1_cold_ms, "plain_ms": k1_plain_ms,
             "spread_ms": k1_spread, "cold_spread_ms": k1_cold_spread, "times": MEDIAN_TIMES,
             "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
@@ -1600,6 +1973,8 @@ def main(argv=None) -> int:
             "source": "open3d_tpu_torch/csrc/tsdf.cu",
             "replaces": "open3d_tpu/ops/pallas/tsdf.py:56",
             "launches": fr["launches"]["fuse_blocks"],
+            "launches_by_path": {"make_fragments (phase 8)": fr["launches"]["fuse_blocks"],
+                                 "run_system (phase 13)": scene["launches"]["fuse_blocks"]},
             "max_abs_err": k3_out["max_abs_err"],
             "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "cold_ms": k3_out["cold_ms"],
             "spread_ms": k3_out["spread_ms"], "cold_spread_ms": k3_out["cold_spread_ms"],
@@ -1628,7 +2003,8 @@ def main(argv=None) -> int:
                                    "fragment_stage_median_ms": fr["times"],
                                    "make_fragments_inside_ms": fr["inside_ms"],
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
-                                   "registration": registration, "card": smi}))
+                                   "registration": registration, "scene": scene,
+                                   "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ voxel_size, block_resolution, sdf_trunc), so a checkpoint written by the
 JAX package loads here with `vbg_from_numpy(**np.load(path))` and without
 importing JAX. Any block resolution carries over: an 8^3 grid's payload is
 (C+1, 4, 128) in both packages. Pose graphs carry their seven arrays by
-field name, point clouds their full-capacity positions, mask and attributes.
+field name, point clouds their full-capacity positions, mask and attributes,
+triangle meshes their full-capacity arrays, masks and attribute dicts.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
+from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
 from open3d_tpu_torch.geometry.voxel_block_grid import VoxelBlockGrid, payload_shape
 from open3d_tpu_torch.models.dense_slam import SLAMConfig, SLAMModel
 from open3d_tpu_torch.pipelines.pose_graph import PoseGraph
@@ -47,6 +49,31 @@ def point_cloud_from_numpy(arrays: dict, device=None) -> PointCloud:
 def point_cloud_to_numpy(pcd: PointCloud) -> dict:
     out = {"positions": pcd.positions.cpu().numpy(), "mask": pcd.mask.cpu().numpy()}
     out.update({k: v.cpu().numpy() for k, v in pcd.attrs.items()})
+    return out
+
+
+MESH_FIELDS = ("vertices", "triangles", "vertex_mask", "triangle_mask")
+
+
+def triangle_mesh_from_numpy(arrays: dict, device=None) -> TriangleMesh:
+    """A TriangleMesh from {MESH_FIELDS..., "vertex_attrs": {...},
+    "triangle_attrs": {...}} at full capacity, rows kept as they are."""
+    dev = default_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    return TriangleMesh(
+        **{f: t(arrays[f]) for f in MESH_FIELDS},
+        vertex_attrs={k: t(v) for k, v in arrays.get("vertex_attrs", {}).items()},
+        triangle_attrs={k: t(v) for k, v in arrays.get("triangle_attrs", {}).items()},
+    )
+
+
+def triangle_mesh_to_numpy(mesh: TriangleMesh) -> dict:
+    out = {f: getattr(mesh, f).cpu().numpy() for f in MESH_FIELDS}
+    out["vertex_attrs"] = {k: v.cpu().numpy() for k, v in mesh.vertex_attrs.items()}
+    out["triangle_attrs"] = {k: v.cpu().numpy() for k, v in mesh.triangle_attrs.items()}
     return out
 
 

@@ -79,3 +79,18 @@ def compact_indices(mask: torch.Tensor, capacity: int):
     live = torch.arange(capacity, device=mask.device) < count
     idx = torch.where(live, idx, torch.clamp(idx, max=n - 1))
     return idx.to(torch.int32), torch.clamp(count, max=capacity).to(torch.int32)
+
+
+def lexsort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """The stable lexicographic order of the rows of (N, k) int32 keys,
+    column 0 first (`jax.lax.sort` over k keys, or `jnp.lexsort` of the
+    reversed columns): the columns packed two a word into int64, one
+    stable argsort a word from the last to the first."""
+    k = keys.to(torch.int64)
+    if k.shape[1] % 2:
+        k = torch.cat([k, torch.zeros_like(k[:, :1])], dim=1)
+    words = [(k[:, j] << 32) + (k[:, j + 1] + 2**31) for j in range(0, k.shape[1], 2)]
+    order = torch.argsort(words[-1], stable=True)
+    for w in reversed(words[:-1]):
+        order = order[torch.argsort(w[order], stable=True)]
+    return order

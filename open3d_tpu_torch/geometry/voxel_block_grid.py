@@ -1,6 +1,6 @@
-"""Sparse TSDF voxel block grid (port of the create / touch / integrate /
-raycast / point-cloud extraction path of
-open3d_tpu/geometry/voxel_block_grid.py; mesh extraction is not ported).
+"""Sparse TSDF voxel block grid (port of open3d_tpu/geometry/voxel_block_grid.py:
+create, touch, integrate, raycast, and the point-cloud and triangle-mesh
+extraction).
 
 The layout is the JAX package's, bit for bit:
 - `table` (C, 2) int32 packed block keys (core/hashmap.py); the slot index
@@ -28,10 +28,11 @@ import dataclasses
 import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from open3d_tpu_torch.core import hashmap as hm
-from open3d_tpu_torch.core.masking import FAR_COORD, _div, compact_indices
+from open3d_tpu_torch.core.masking import FAR_COORD, _div, compact_indices, lexsort_rows
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
@@ -887,3 +888,204 @@ def extract_point_cloud(
         cc = unpack_rgb(vbg.color_flat[:C]).reshape(-1, 3).repeat(3, 1)
         attrs["colors"] = torch.where(sel_mask[:, None], cc[idx], 0.0)
     return PointCloud(positions=out_pos, mask=sel_mask, attrs=attrs)
+
+
+# ---------------------------------------------------------------------------
+# Triangle mesh extraction: marching tetrahedra
+# ---------------------------------------------------------------------------
+#
+# Each cube of 8 voxel corners splits into 6 tetrahedra around its 0-7
+# diagonal; a tetrahedron's 16 inside/outside cases emit at most 2
+# triangles, each vertex on a tet edge between two global voxel corners.
+# The canonical (lo, hi) corner pair of that edge is a global key, so the
+# indexed mesh merges duplicate vertices with one lexicographic sort.
+
+
+def _tet_tables():
+    """16-case marching-tetrahedra table: (case, tri<=2, corner_pair(3, 2))
+    of tet-local corner ids (-1 pads unused slots), and each case's count."""
+    edges = np.full((16, 2, 3, 2), -1, np.int64)
+    count = np.zeros((16,), np.int64)
+    for mask in range(16):
+        ins = [i for i in range(4) if mask >> i & 1]
+        outs = [i for i in range(4) if not (mask >> i & 1)]
+        tris = []
+        if len(ins) == 1:
+            i = ins[0]
+            tris.append([(i, outs[0]), (i, outs[1]), (i, outs[2])])
+        elif len(ins) == 3:
+            o = outs[0]
+            tris.append([(o, ins[0]), (o, ins[1]), (o, ins[2])])
+        elif len(ins) == 2:
+            i, j = ins
+            k, l = outs
+            tris.append([(i, k), (i, l), (j, l)])
+            tris.append([(i, k), (j, l), (j, k)])
+        for t, tri in enumerate(tris):
+            for e, pair in enumerate(tri):
+                edges[mask, t, e] = pair
+        count[mask] = len(tris)
+    return torch.from_numpy(edges), torch.from_numpy(count)
+
+
+_TET_EDGES, _TET_COUNT = _tet_tables()
+# 6-tet decomposition of the cube around the 0-7 diagonal; cube corner id
+# bit layout: bit0 = +x, bit1 = +y, bit2 = +z
+_CUBE_TETS = torch.tensor(
+    [[0, 1, 3, 7], [0, 3, 2, 7], [0, 2, 6, 7], [0, 6, 4, 7], [0, 4, 5, 7], [0, 5, 1, 7]],
+    dtype=torch.int64,
+)
+_CORNER_OFFSETS = torch.tensor(
+    [[(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)], dtype=torch.int32
+)
+_INT32_MAX = 2**31 - 1
+
+
+def extract_triangle_mesh(
+    vbg: VoxelBlockGrid,
+    triangle_capacity: int = 262144,
+    weight_threshold: float = 3.0,
+    block_chunk: int = 8,
+    indexed: bool = True,
+):
+    """Zero-level-set mesh by marching tetrahedra, with shared vertices
+    (`indexed`, one vertex per distinct tet edge) or as the raw soup.
+
+    Triangles come in the reference's scan order (hash row, voxel, tet,
+    triangle slot) over the occupied rows; the first `triangle_capacity`
+    are kept, the rest dropped. A cube takes part when its 8 corners all
+    carry `weight_threshold`. Two passes: each voxel's 6 tet cases over
+    `block_chunk` blocks a step, then the triangles of the live cases in
+    batches of `block_chunk` blocks' worth of triangle slots; the result
+    does not depend on `block_chunk`, which bounds the transient memory.
+    Returns a geometry.trianglemesh.TriangleMesh."""
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+
+    B = vbg.block_resolution
+    B3 = B**3
+    C = vbg.capacity
+    dev = vbg.device
+    G = max(int(block_chunk), 1)
+    Tcap = int(triangle_capacity)
+    tet_edges, tet_count = _TET_EDGES.to(dev), _TET_COUNT.to(dev)
+    cube_tets, offs = _CUBE_TETS.to(dev), _CORNER_OFFSETS.to(dev)
+
+    rows = torch.nonzero(hm.occupied_mask(vbg.table)).reshape(-1)  # ascending
+    bco = hm.unpack_coords(vbg.table)[rows]  # (n, 3)
+    nb_slot, nb_found = hm.find(vbg.table, hm.pack_coords(bco[:, None, :] + offs).reshape(-1, 2))
+    nb_rows = torch.where(nb_found, nb_slot, C).reshape(-1, 8).to(torch.int64)  # (n, 8)
+    nb_rows[:, 0] = rows
+
+    # a cube corner's voxel: its neighbour block (`which`, same bit layout
+    # as the corner ids) and its flat index there
+    local = _voxel_local_coords(B, dev)
+    nxt = local[:, None, :] + offs[None, :, :]  # (B3, 8, 3)
+    over = (nxt >= B).to(torch.int64)
+    wrapped = nxt - over * B
+    flat = (wrapped[..., 0] + wrapped[..., 1] * B + wrapped[..., 2] * B * B).to(torch.int64)
+    which = over[..., 0] + 2 * over[..., 1] + 4 * over[..., 2]  # (B3, 8)
+    tw2d, col2d = vbg.tw_flat, vbg.color_flat
+
+    # pass 1: every voxel's 6 tet cases; a cube below the weight threshold
+    # takes case 0, which emits nothing
+    n = rows.numel()
+    cases = torch.empty((n, B3, 6), dtype=torch.uint8, device=dev)
+    bits = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=dev)
+    for s in range(0, n, G):
+        tsdf_c, w_c = unpack_tw(tw2d[nb_rows[s:s + G][:, which], flat])  # (g, B3, 8)
+        cube_ok = torch.all(w_c >= weight_threshold, dim=-1)
+        inside = (tsdf_c[:, :, cube_tets] < 0).to(torch.int64)  # (g, B3, 6, 4)
+        case = (inside * bits).sum(-1)
+        cases[s:s + G] = torch.where(cube_ok[..., None], case, 0).to(torch.uint8)
+
+    # the live (row, voxel, tet) cells in scan order, each expanded to its
+    # triangle slots; only the first Tcap triangles are built
+    cell = torch.nonzero(((cases != 0) & (cases != 15)).reshape(-1)).reshape(-1)  # 0, 15: none
+    n_tri = tet_count[cases.reshape(-1)[cell].to(torch.int64)]
+    total = int(n_tri.sum())
+    kept = min(total, Tcap)
+    tri_cell = torch.repeat_interleave(cell, n_tri)[:kept]
+    slot = (torch.arange(kept, device=dev)
+            - torch.repeat_interleave(torch.cumsum(n_tri, 0) - n_tri, n_tri)[:kept])
+
+    out_v = torch.zeros((Tcap, 3, 3), dtype=torch.float32, device=dev)
+    out_c = torch.zeros((Tcap, 3, 3), dtype=torch.float32, device=dev)
+    out_k = torch.zeros((Tcap, 3, 6), dtype=torch.int32, device=dev)
+    step = G * B3 * 12
+    for s in range(0, kept, step):
+        e = min(s + step, kept)
+        c, sl = tri_cell[s:e], slot[s:e]
+        blk, vox, tet = c // (B3 * 6), (c // 6) % B3, c % 6
+        pairs = tet_edges[cases.reshape(-1)[c].to(torch.int64), sl]  # (m, 3, 2) tet corners
+        cc = cube_tets[tet[:, None, None], pairs]  # (m, 3, 2) cube corners
+        gco = (bco[blk][:, None, None, :] * B + local[vox][:, None, None, :]
+               + offs[cc])  # (m, 3, 2, 3) global corner ids
+        # canonical edge orientation by global corner id: the same edge is
+        # reached from several tets and cubes, either end first, and
+        # a + f (b - a) from opposite ends differs by an ulp
+        ka, kb = gco[:, :, 0], gco[:, :, 1]
+        d = ka - kb
+        swap = (d[..., 0] > 0) | ((d[..., 0] == 0) & ((d[..., 1] > 0) | (
+            (d[..., 1] == 0) & (d[..., 2] > 0))))
+        cc = torch.where(swap[..., None], cc.flip(-1), cc)
+        lo = torch.where(swap[..., None], kb, ka)
+        hi = torch.where(swap[..., None], ka, kb)
+        out_k[s:e] = torch.cat([lo, hi], dim=-1)
+        vrow = nb_rows[blk[:, None, None], which[vox[:, None, None], cc]]
+        vcol = flat[vox[:, None, None], cc]
+        tv, _ = unpack_tw(tw2d[vrow, vcol])  # (m, 3, 2)
+        va, vb = tv[..., 0], tv[..., 1]
+        frac = va / torch.where(torch.abs(va - vb) > 1e-12, va - vb, 1.0)
+        frac = torch.clamp(frac, 0.0, 1.0)[..., None]
+        pa = lo.to(torch.float32) * vbg.voxel_size
+        pb = hi.to(torch.float32) * vbg.voxel_size
+        out_v[s:e] = pa + frac * (pb - pa)
+        if vbg.has_color:
+            cols = unpack_rgb(col2d[vrow, vcol])  # (m, 3, 2, 3)
+            ca, cb = cols[:, :, 0], cols[:, :, 1]
+            out_c[s:e] = ca + frac * (cb - ca)
+
+    tri_mask = torch.arange(Tcap, device=dev) < kept
+    if not indexed:
+        return TriangleMesh.from_triangle_soup(out_v, tri_mask,
+                                               colors=out_c if vbg.has_color else None)
+    return _index_soup(out_v, out_c if vbg.has_color else None, out_k, tri_mask)
+
+
+def _index_soup(tri_verts, tri_cols, tri_keys, tri_mask):
+    """Merge soup vertices that share a canonical edge key into an indexed
+    mesh of capacity N = 3T vertices; vertex_mask marks the n_unique live
+    ones, first in key order. Duplicates are bit-identical, so each unique
+    vertex takes its first sorted occurrence."""
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+
+    T = tri_verts.shape[0]
+    N = 3 * T
+    dev = tri_verts.device
+    keys = tri_keys.reshape(N, 6)
+    vvalid = tri_mask.repeat_interleave(3)
+    # invalid soup slots sort to the end (key column 0 = INT32_MAX)
+    keys = torch.cat([torch.where(vvalid, keys[:, 0], _INT32_MAX)[:, None], keys[:, 1:]], dim=1)
+    sidx = lexsort_rows(keys)
+    sk = keys[sidx]
+    is_new = torch.ones(N, dtype=torch.bool, device=dev)
+    is_new[1:] = torch.any(sk[1:] != sk[:-1], dim=-1)
+    uid_sorted = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_unique = (is_new & vvalid[sidx]).sum()
+    uid = torch.empty(N, dtype=torch.int32, device=dev).scatter_(0, sidx, uid_sorted)
+    first = sidx[is_new]
+    verts = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    verts[:first.numel()] = tri_verts.reshape(N, 3)[first]
+    vattrs = {}
+    if tri_cols is not None:
+        cols = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+        cols[:first.numel()] = tri_cols.reshape(N, 3)[first]
+        vattrs["colors"] = cols
+    return TriangleMesh(
+        vertices=verts,
+        triangles=uid.reshape(T, 3),
+        vertex_mask=torch.arange(N, device=dev) < n_unique,
+        triangle_mask=tri_mask,
+        vertex_attrs=vattrs,
+        triangle_attrs={},
+    )

@@ -78,12 +78,15 @@ def _integrate_plain(tw, color, slots, coords, intrinsic, extrinsic, voxel_size,
     the (r, g, b) sample in [0, 1]. `v1` takes the V1 kernel's projection
     (both product pairs fused) and passes the new tsdf through its bf16
     hi + lo relayout split. Updates the rows of `tw` (and `color`) named by
-    `slots` in place; entries whose slot is the dump row C are skipped."""
+    `slots` in place; entries whose slot is the dump row C are skipped
+    (left out before any arithmetic: a frame's work list is mostly dump
+    entries at a large frame_block_capacity)."""
     C = tw.shape[0] - 1
     tw2 = tw.view(C + 1, _B3)
     col2 = color.view(C + 1, _B3) if color is not None else None
-    live = (slots >= 0) & (slots < C)
-    rows = torch.where(live, slots, C).to(torch.int64)
+    live = torch.nonzero((slots >= 0) & (slots < C)).reshape(-1)
+    rows = slots[live].to(torch.int64)
+    coords = coords[live]
     p = _params(extrinsic, tw.device)
     R00, R01, R02, R10, R11, R12, R20, R21, R22, tX, tY, tZ = [p[i] for i in range(12)]
 
@@ -133,9 +136,7 @@ def _integrate_plain(tw, color, slots, coords, intrinsic, extrinsic, voxel_size,
     tq = torch.round(torch.clamp(t2, -1.0, 1.0) * _TSDF_SCALE).to(torch.int32)
     new_tw = (tq << 16) | w2.to(torch.int32)
 
-    # rows of skipped entries are written back unchanged (into the dump row)
-    tw2.index_copy_(0, rows, torch.where(live[:, None], new_tw, old))
-    tw2[C] = 0
+    tw2.index_copy_(0, rows, new_tw)
     if col2 is None:
         return
     oldc = col2[rows]
@@ -150,8 +151,7 @@ def _integrate_plain(tw, color, slots, coords, intrinsic, extrinsic, voxel_size,
     gi = torch.clamp(fma(g2, 2047.0, 0.5), 0, 2047).to(torch.int32)
     bi = torch.clamp(fma(b2, 1023.0, 0.5), 0, 1023).to(torch.int32)
     new_c = (ri << 21) | (gi << 10) | bi
-    col2.index_copy_(0, rows, torch.where(live[:, None], new_c, oldc))
-    col2[C] = 0
+    col2.index_copy_(0, rows, new_c)
 
 
 def _hi_lo(x: torch.Tensor) -> torch.Tensor:

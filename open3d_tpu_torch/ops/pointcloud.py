@@ -23,7 +23,7 @@ import math
 import torch
 
 from open3d_tpu_torch.core import linalg, nns
-from open3d_tpu_torch.core.masking import FAR_COORD, _div
+from open3d_tpu_torch.core.masking import FAR_COORD, _div, lexsort_rows
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 
 
@@ -43,11 +43,7 @@ def voxel_down_sample(
     # voxel coordinates; invalid rows go to huge coordinates and sort last
     coords = torch.floor(_div(pos, voxel_size)).to(torch.int32)
     coords = torch.where(mask[:, None], coords, 2**30)
-    # jnp.lexsort((z, y, x)) as two stable sorts: by (y, z) packed in int64,
-    # then by x
-    c = coords.to(torch.int64)
-    order = torch.argsort((c[:, 1] << 32) + (c[:, 2] + (1 << 31)), stable=True)
-    order = order[torch.argsort(c[order, 0], stable=True)]
+    order = lexsort_rows(coords)  # jnp.lexsort((z, y, x))
     sc = coords[order]
     sorted_mask = mask[order]
     first = torch.ones(N, dtype=torch.bool, device=pos.device)

@@ -168,8 +168,12 @@ def _solve(H, b, lam, anchor: int):
     # pin the anchor block: a huge diagonal forces dx_anchor ~ 0
     a = anchor * 6 + torch.arange(6, device=H.device)
     Hd = Hd.index_put((a, a), Hd[a, a] + 1e12)
-    dx = torch.linalg.solve(Hd, -bd)
-    return dx.reshape(F, 6)
+    # a system singular in float32 (a rank-deficient block once the damping
+    # rounds away) gives NaN, as the reference's solve does: the step then
+    # counts as not improved and the damping grows, where a raise would end
+    # the optimisation
+    dx, info = torch.linalg.solve_ex(Hd, -bd)
+    return torch.where(info == 0, dx, float("nan")).reshape(F, 6)
 
 
 def global_optimization(

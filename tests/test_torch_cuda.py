@@ -610,3 +610,75 @@ def test_icp_matches_a_cpu_copy(reg_clouds):
     assert float((a.transformation.cpu() - b.transformation).abs().max()) <= 1e-4
     assert abs(float(a.fitness) - float(b.fitness)) <= 2.0 / host[0].capacity
     assert float(a.fitness) > 0.5
+
+
+@pytest.fixture(scope="module")
+def fused_grids(cuda):
+    """8^3 and 16^3 grids fused on the card from 3 frames (K3 and K1), and
+    a CPU copy of each."""
+    import dataclasses
+
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+
+    d, c, e, intr = synthetic.render_sequence(3, span=0.3, device=cuda)
+    out = {}
+    for res, voxel in ((8, 0.04), (16, 0.02)):
+        g = vbg.create(voxel_size=voxel, block_resolution=res, block_count=4096, device=cuda)
+        for i in range(3):
+            keys, _ = vbg.compute_unique_block_coordinates(g, d[i], intr, e[i],
+                                                           frame_block_capacity=2048)
+            g = vbg.integrate(g, keys, d[i], c[i], intr, e[i])
+        host = dataclasses.replace(g, table=g.table.cpu(), tw=g.tw.cpu(), color=g.color.cpu())
+        out[res] = (g, host)
+    return out
+
+
+@pytest.mark.parametrize("indexed", [True, False], ids=["indexed", "soup"])
+@pytest.mark.parametrize("res", [8, 16])
+def test_mesh_extraction_matches_a_cpu_copy(fused_grids, res, indexed):
+    """Marching tetrahedra on the card and on a CPU copy of the grid:
+    topology equal, vertices and colours within 1e-6."""
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+
+    card, host = fused_grids[res]
+    a = vbg.extract_triangle_mesh(card, triangle_capacity=200_000, weight_threshold=2.0,
+                                  indexed=indexed)
+    b = vbg.extract_triangle_mesh(host, triangle_capacity=200_000, weight_threshold=2.0,
+                                  indexed=indexed)
+    assert int(b.num_triangles()) > 1000
+    for f in ("triangles", "vertex_mask", "triangle_mask"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert float((a.vertices.cpu() - b.vertices).abs().max()) <= 1e-6
+    assert float((a.vertex_attrs["colors"].cpu() - b.vertex_attrs["colors"]).abs().max()) <= 1e-6
+
+
+def test_mesh_clusters_match_a_cpu_copy(fused_grids):
+    """cluster_connected_triangles and remove_small_components on the card
+    and on a CPU copy of the mesh, below and at the fixed point: ids,
+    counts and masks equal, areas within 1e-5 relative."""
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg
+    from open3d_tpu_torch.ops import mesh as mops
+
+    card, _ = fused_grids[8]
+    m = vbg.extract_triangle_mesh(card, triangle_capacity=200_000, weight_threshold=2.0)
+    h = _mesh_to_cpu(m)
+    _, hops = mops._propagate_labels(h, 4096, check_every=1)
+    for cap in (4, hops):
+        ids_a, n_a, cnt_a, area_a = mops.cluster_connected_triangles(m, max_iterations=cap)
+        ids_b, n_b, cnt_b, area_b = mops.cluster_connected_triangles(h, max_iterations=cap)
+        assert torch.equal(ids_a.cpu(), ids_b) and int(n_a) == int(n_b)
+        assert torch.equal(cnt_a.cpu(), cnt_b)
+        assert float(((area_a.cpu() - area_b).abs() / area_b.clamp(min=1e-12)).max()) <= 1e-5
+    keep_a = mops.remove_small_components(m, min_triangles=32).triangle_mask
+    keep_b = mops.remove_small_components(h, min_triangles=32).triangle_mask
+    assert torch.equal(keep_a.cpu(), keep_b)
+
+
+def _mesh_to_cpu(mesh):
+    import dataclasses
+
+    return dataclasses.replace(
+        mesh, vertices=mesh.vertices.cpu(), triangles=mesh.triangles.cpu(),
+        vertex_mask=mesh.vertex_mask.cpu(), triangle_mask=mesh.triangle_mask.cpu(),
+        vertex_attrs={k: v.cpu() for k, v in mesh.vertex_attrs.items()}, triangle_attrs={})

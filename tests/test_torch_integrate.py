@@ -149,6 +149,65 @@ def test_plain_integrate_matches_interpreted_kernel(frames):
     assert int(np.asarray(vt.tw)[C].sum()) == 0
 
 
+def test_plain_integrate_skips_dump_entries_as_the_kernel_does(frames):
+    """A work list mostly of dump entries, as integrate_scene's
+    frame_block_capacity of 8192 gives: frame 1's keys at capacity 256,
+    shuffled so the dump entries lie between live ones. The plain version
+    (which leaves dump entries out before computing) against the JAX
+    kernel, interpreted, at the bars above; and bit-equal to itself on the
+    live entries alone, with every row outside the work list and the dump
+    row unchanged."""
+    d, c, e = frames
+    ji, ti = JIntr(*INTR), TIntr(*INTR)
+    vj = jvbg.create(voxel_size=VOXEL, block_count=1024)
+    k0, _ = jvbg.compute_unique_block_coordinates(vj, d[0], ji, e[0], 3.0, frame_block_capacity=256)
+    vj = jvbg.integrate(vj, k0, d[0], c[0], ji, e[0], depth_max=3.0, use_pallas=False)
+    vt = _to_port(vj)
+
+    keys, _ = jvbg.compute_unique_block_coordinates(vj, d[1], ji, e[1], 3.0, frame_block_capacity=256)
+    keys = np.asarray(keys)[np.random.default_rng(1).permutation(256)]
+    coords = jhm.unpack_coords(jnp.asarray(keys))
+    hp, wp = jpint2.plane_dims(ji.height, ji.width)
+    v0, u0, shift, fit = jpint.block_slab_fit(
+        coords, ji, e[1], VOXEL, valign=jpint2._VALIGN, vwin=jpint2._VWIN, hp=hp, wp=wp
+    )
+    keys = np.where((np.asarray(fit) == 1)[:, None], keys, 0)
+    C = vj.capacity
+    table, slot, ok = jhm.activate(vj.table, jnp.asarray(keys))
+    rows = jnp.where(ok, slot, C).astype(jnp.int32)
+    live = np.asarray(rows) < C
+    assert 40 <= live.sum() < 0.5 * live.size and not live[: live.sum()].all()
+    planes = jpint2.prepare_planes_v2(d[1], c[1], True, 3.0)
+    tw_j, col_j = jpint2.integrate_blocks_v2(
+        vj.tw, vj.color, rows, coords, v0, u0, shift, fit, planes, ji, e[1],
+        VOXEL, vj.sdf_trunc, 3.0, interpret=True,
+    )
+
+    rows_t = _t(rows)
+    coords_t = thm.unpack_coords(_t(keys))
+    d21, rgb24 = tk1.prepare_frame(_t(d[1]), _t(c[1]), 3.0)
+    tail = (ti, _t(e[1]), VOXEL, vt.sdf_trunc, 3.0)
+    tw0, col0 = vt.tw.clone(), vt.color.clone()
+    tk1.integrate_blocks_plain(vt.tw, vt.color, rows_t, coords_t, d21, rgb24, *tail)
+    wa, ta = _weights_tsdf(tw_j)
+    wb, tb = _weights_tsdf(vt.tw)
+    diff = wa != wb
+    assert diff.mean() < 1e-6, diff.sum()
+    np.testing.assert_allclose(ta[~diff], tb[~diff], atol=1e-3, rtol=0)
+    ca = np.asarray(jvbg.unpack_rgb(np.asarray(col_j).reshape(-1)))
+    cb = tvbg.unpack_rgb(vt.color.reshape(-1)).numpy()
+    assert np.abs(ca - cb)[~diff].max() <= 1.0 / 2047.0 + 1e-7
+
+    tw1, col1 = tw0.clone(), col0.clone()
+    sel = torch.from_numpy(live)
+    tk1.integrate_blocks_plain(tw1, col1, rows_t[sel], coords_t[sel], d21, rgb24, *tail)
+    assert torch.equal(tw1, vt.tw) and torch.equal(col1, vt.color)
+    outside = torch.ones(C + 1, dtype=torch.bool)
+    outside[rows_t[sel].long()] = False
+    assert torch.equal(vt.tw[outside], tw0[outside]) and torch.equal(vt.color[outside], col0[outside])
+    assert int(vt.tw[C].abs().sum()) == 0 and int(vt.color[C].abs().sum()) == 0
+
+
 def test_integrate_matches_xla_path(frames):
     d, c, e = frames
     ji, ti = JIntr(*INTR), TIntr(*INTR)

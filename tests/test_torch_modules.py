@@ -3,7 +3,7 @@ slices left out (hashmap erase / active_slots / resize; eigh3x3 and
 solve3x3; the masked reductions and padding; the rgbd unprojection and
 splat; the PointCloud transforms, bounds and selection; the Sobel,
 colourise, linear and dilate image ops; the camera records; sample_surface;
-the grid and pose-graph files), one parametrised case a name, against
+the grid, pose-graph and triangle-mesh files), one parametrised case a name, against
 open3d_tpu on the same seeded numpy inputs.
 
 Bars: integer results (hash tables, slots, counts, index maps, masks) and
@@ -486,6 +486,47 @@ def _(rng, tmp_path):
         _eq(back.color, gj.color)
         again = tio.read_voxel_block_grid(path, device="cpu")
         assert torch.equal(again.tw, gt.tw) and again.has_color == with_color
+
+
+def _meshes(rng):
+    """The same random mesh in both packages (60 triangles over 40
+    vertices, a few of each masked out), with vertex colours."""
+    from open3d_tpu.geometry.trianglemesh import TriangleMesh as JMesh
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh as TMesh
+
+    v = rng.uniform(-1, 1, (40, 3)).astype(np.float32)
+    t = np.stack([rng.choice(40, 3, replace=False) for _ in range(60)]).astype(np.int32)
+    kw = dict(vertex_mask=rng.uniform(size=40) > 0.1, triangle_mask=rng.uniform(size=60) > 0.2,
+              vertex_attrs={"colors": rng.uniform(0, 1, (40, 3)).astype(np.float32)})
+    return JMesh.create(v, t, **kw), TMesh.create(v, t, device="cpu", **kw)
+
+
+def _mesh_files_eq(mt, mj):
+    for f in ("vertices", "triangles", "vertex_mask", "triangle_mask"):
+        _eq(getattr(mt, f), getattr(mj, f))
+    assert mt.vertex_attrs.keys() == mj.vertex_attrs.keys()
+
+
+@case("io.read_triangle_mesh")
+def _(rng, tmp_path):
+    """Meshes the JAX package wrote (.ply, .obj) read here as there."""
+    mj, _ = _meshes(rng)
+    for ext in (".ply", ".obj"):
+        path = str(tmp_path / f"jax{ext}")
+        jio.write_triangle_mesh(path, mj)
+        _mesh_files_eq(tio.read_triangle_mesh(path, device="cpu"), jio.read_triangle_mesh(path))
+
+
+@case("io.write_triangle_mesh")
+def _(rng, tmp_path):
+    """Meshes the port wrote equal the JAX package's files byte for byte."""
+    mj, mt = _meshes(rng)
+    for ext in (".ply", ".obj"):
+        a, b = str(tmp_path / f"jax{ext}"), str(tmp_path / f"port{ext}")
+        jio.write_triangle_mesh(a, mj)
+        tio.write_triangle_mesh(b, mt)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
 
 
 def _graphs(rng):

@@ -150,3 +150,17 @@ def test_pose_graph_carried_across(graphs):
 def test_distributed_solve_raises(graphs):
     with pytest.raises(NotImplementedError):
         tpg.global_optimization(graphs[1], mesh=object())
+
+
+def test_singular_system_gives_nan_as_the_reference_does():
+    """A damped system singular in float32 (a rank-one block whose damping
+    rounds away) solves to NaN in both packages, so the LM step counts as
+    not improved; the port does not raise."""
+    H = np.zeros((2, 2, 6, 6), np.float32)
+    H[1, 1] = 1e4
+    b = np.ones((2, 6), np.float32)
+    dj = np.asarray(jpg._solve(jnp.asarray(H), jnp.asarray(b), jnp.float32(0.0), 0))
+    dt = tpg._solve(torch.from_numpy(H), torch.from_numpy(b), torch.tensor(0.0), 0).numpy()
+    assert np.isnan(dj).all() and np.isnan(dt).all()
+    ok = tpg._solve(torch.from_numpy(H), torch.from_numpy(b), torch.tensor(1e-4), 0).numpy()
+    assert np.isfinite(ok).all()

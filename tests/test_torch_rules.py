@@ -509,11 +509,13 @@ def test_probe_wrappers_refuse_indices_out_of_range():
 # Names the reference has and the port still lacks, each with the item of
 # ROADMAP.md §1 that queues it. Nothing else may be missing.
 QUEUED = {
-    "geometry.voxel_block_grid": {"extract_triangle_mesh": 7},
-    "io": {"read_triangle_mesh": 7, "write_triangle_mesh": 7},
+    "ops.mesh": dict.fromkeys(
+        ("bake_triangle_attr_textures", "bake_vertex_attr_textures", "boolean_difference",
+         "boolean_intersection", "boolean_union", "clip_plane", "compute_uv_atlas",
+         "deform_as_rigid_as_possible", "fill_holes", "filter_smooth_laplacian",
+         "filter_smooth_taubin", "simplify_quadric_decimation", "simplify_vertex_clustering",
+         "subdivide_loop", "subdivide_midpoint"), 10),
     "ops.pointcloud": {"extrude_linear": 10, "extrude_rotation": 10},
-    "pipelines.reconstruction": {"register_fragments": 9, "refine_registration": 9,
-                                 "integrate_scene": 9, "run_system": 9, "extract_scene_mesh": 9},
 }
 # The port's modules with no module at the same path in the reference: the
 # numpy interchange, and the kernel layer that replaces ops/pallas/
