@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the dense-SLAM
 frame step, stage 1 of the offline reconstruction system (make_fragments),
 the primitive, gather and march probes that scripts/ ran on the TPU, the
-registration path (ICP, FPFH, RANSAC, FGR), and the whole offline system
-(run_system) with its scene mesh.
+registration path (ICP, FPFH, RANSAC, FGR), the whole offline system
+(run_system) with its scene mesh, and the same from PNG files on disk over
+a one-rank process group, with the distributed solves and the `slam`
+command.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -82,7 +84,24 @@ Phases:
      clustered on the card against a CPU copy. Each stage's time, the peak
      memory, the edges, the RANSAC pair, the fragment point counts and
      ICP's counted iterations are printed; then run_system at span 1.2,
-     where adjacent fragments lie 0.4 rad apart, printed, not gated.
+     where adjacent fragments lie 0.4 rad apart, printed, not gated;
+ 14. from disk and over a one-rank process group of the card (NCCL):
+     phase 13's 120 frames written in the TUM layout (write_tum_sequence)
+     and read back (load_tum_sequence), every frame gated exactly against
+     the file's quantisation, the decode ms a frame and the bytes on disk
+     printed; run_system on them with mesh=make_pipeline_mesh(1) at
+     ReconstructionConfig's defaults (stage 1 by make_fragments_sharded, K3
+     once a fragment frame; K1 once a scene frame), counted like phase 5,
+     gated on the group's backend, the ATE and the scene mesh on the SDF,
+     its stage times printed; K3 replayed against its plain version on the
+     sharded chain's fragment frame 10 (8192 blocks, 4096 a frame) and on
+     a padding fragment's work list, which has no live entry; the
+     edge-sharded CG against the local one and Schur BA at
+     dryrun_multichip's sizes; register_pairs_sharded and the multiway
+     Gauss-Newton step on the three fragments the run wrote (finite, the
+     RMSE not rising); the `slam` command over 20 frames of the directory
+     (K1 and K2 counted), its poses against an in-process slam_step loop
+     (1e-6) and the truth (0.05 m / rad); then the group is torn down.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -152,6 +171,10 @@ GLOBAL_POSE_TOL = 0.05  # m and rad, tests/test_global_registration.py:90-93
 RANSAC_MIN_FITNESS = 0.7  # the same test's bar
 VDS_TOL = 1e-6  # voxel means on the card vs a CPU copy (sequential sums on both)
 SCENE_ATE_TOL = 0.05  # m, tests/test_reconstruction.py:54
+# Phase 14's bars: __graft_entry__.dryrun_multichip's (the sharded CG against
+# the local one) and tests/test_distributed_solver.py's (BA's error gain)
+SOLVE_TOL = 1e-3
+BA_GAIN = 0.2
 ICP_CAPACITY = 40960  # voxel_down_sample capacities of bench.py's ICP and FPFH workloads
 FPFH_CAPACITY = 16384
 # how a kernel's ms (warm, cold, floor) is read; the plain versions' and
@@ -1501,6 +1524,396 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
             "fragment_mesh_card_vs_cpu": cmp}
 
 
+def k3_replay(k3, vbg_mod, pre_tw, pre_col, rows, tsdf_new, wn, cnew, what: str) -> dict:
+    """K3 and its plain version on two copies of the payload that a fuse of
+    the main path found (`pre_tw`, `pre_col`), with that call's work list
+    and samples: bit parity on the live rows, the dump row and every row
+    outside the list untouched in both; a list with no live entry leaves
+    both copies as the payload was."""
+    import torch
+
+    C = pre_tw.shape[0] - 1
+    live = rows[rows < C].long()
+    in_list = torch.zeros(C + 1, dtype=torch.bool, device=rows.device)
+    in_list[live] = True
+    states = {}
+    for name, fn in (("kernel", k3.fuse_blocks), ("plain", k3.fuse_blocks_plain)):
+        tw, col = pre_tw.clone(), pre_col.clone()
+        fn(tw, col, rows, tsdf_new, wn, cnew)
+        if rows.is_cuda:
+            torch.cuda.synchronize()
+        changed = (tw != pre_tw).any(1) | (col != pre_col).any(1)
+        check(not bool(changed[~in_list].any()) and not bool(changed[C]),
+              f"K3 ({name}) on {what}: {int(changed[~in_list].sum())} rows outside the work list "
+              f"changed")
+        states[name] = (tw, col, int(changed.sum()))
+    res = {"entries": rows.numel(), "live": live.numel(), "rows_changed": states["kernel"][2]}
+    if live.numel() == 0:
+        check(states["kernel"][2] == 0 and states["plain"][2] == 0,
+              f"K3 on {what}, a list with no live entry, leaves the grid as it was {res}")
+        res.update(weight_mismatch=0.0, max_abs_dtsdf=0.0, max_abs_dcolor=0.0, max_abs_err=0.0)
+    else:
+        (tw_a, col_a, _), (tw_b, col_b, _) = states["kernel"], states["plain"]
+        res.update(row_parity(vbg_mod, live, tw_a, col_a, tw_b, col_b))
+        check_bit_parity(f"K3 on {what}", res)
+        check(res["rows_changed"] > live.numel() // 2, f"K3 updated the live rows {res}")
+    log(f"[14] K3 on {what} against its plain version: {res}")
+    return res
+
+
+class K3Capture:
+    """A spy over tsdf.fuse_blocks that keeps, for its `at`-th call, a copy
+    of the payload before the fuse and references to the call's arguments
+    (for k3_replay), and passes every call on. It shares the wrapper's
+    attribute dict, so the launch count lands where launch_counts reads it."""
+
+    def __init__(self, k3, at: int):
+        self.k3, self.at, self.calls, self.kept = k3, at, 0, None
+        self.launch = k3.fuse_blocks
+
+    def __enter__(self):
+        def spy(tw, color, rows, tsdf_new, wn, cnew, *rest, **kw):
+            if self.calls == self.at:
+                self.kept = (tw.clone(), color.clone(), rows, tsdf_new, wn, cnew)
+            self.calls += 1
+            return self.launch(tw, color, rows, tsdf_new, wn, cnew, *rest, **kw)
+
+        spy.__dict__ = self.launch.__dict__
+        self.k3.fuse_blocks = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.k3.fuse_blocks = self.launch
+
+
+class CallTimes:
+    """Spies on module functions (`targets`: name -> module) for the length
+    of a `with`: each call's wall time, the device synced on both sides,
+    summed by name (`ms`) and counted (`calls`); a call of a name that is
+    not in `outer` is also summed under the `outer` call running it
+    (`inside`)."""
+
+    def __init__(self, targets: dict, sync, outer=()):
+        self.targets, self.sync, self.outer = targets, sync, outer
+        self.ms, self.calls, self.inside, self.current = {}, {}, {}, None
+        self.originals = {name: getattr(mod, name) for name, mod in targets.items()}
+
+    def _timed(self, name):
+        def run(*a, **kw):
+            if name in self.outer:
+                self.current = name
+            self.sync()
+            t = time.perf_counter()
+            out = self.originals[name](*a, **kw)
+            self.sync()
+            ms = (time.perf_counter() - t) * 1e3
+            self.ms[name] = self.ms.get(name, 0.0) + ms
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if name not in self.outer and self.current is not None:
+                self.inside[self.current] = self.inside.get(self.current, 0.0) + ms
+            return out
+        return run
+
+    def __enter__(self):
+        for name, mod in self.targets.items():
+            setattr(mod, name, self._timed(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.targets.items():
+            setattr(mod, name, self.originals[name])
+
+
+def solves_phase(dev, smi: str, sync) -> dict:
+    """Phase 14, step 3: the distributed solves at dryrun_multichip's sizes
+    (F = 256 poses, E = 4096 edges; BA with L = 512 landmarks, O = 8192
+    observations) on a one-rank mesh of `dev`: the edge-sharded CG against
+    the local one (the dryrun's bar), and BA from perturbed poses and
+    landmarks (its relative-pose error under BA_GAIN of its start). The
+    times are of one rank: no collective crosses a link."""
+    import numpy as np
+    import torch
+
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.parallel import multihost
+    from open3d_tpu_torch.parallel import solver as dsolver
+    from open3d_tpu_torch.pipelines import pose_graph as pg
+
+    rng = np.random.default_rng(0)
+    F, E = 256, 4096
+    poses = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 0.1, (F, 3))
+    edges = np.stack([rng.integers(0, F - 1, E), rng.integers(1, F, E)], axis=-1).astype(np.int32)
+    edges[:, 1] = np.where(edges[:, 0] == edges[:, 1], (edges[:, 1] + 1) % F, edges[:, 1])
+    graph = pg.PoseGraph.create(poses, edges, np.tile(np.eye(4, dtype=np.float32), (E, 1, 1)),
+                                device=dev)
+    mesh_e = multihost.make_mesh(("edges",), device=dev)
+    w = torch.ones(E, device=dev)
+    lam = torch.tensor(1e-3, device=dev)
+
+    def wall(fn, n=3):
+        out = fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) / n * 1e3
+
+    dx1, local_ms = wall(lambda: pg._solve_distributed(graph, w, lam, 0, None, "edges"))
+    dxn, mesh_ms = wall(lambda: pg._solve_distributed(graph, w, lam, 0, mesh_e, "edges"))
+    cg = {"max_abs_ddx": float((dxn - dx1).abs().max()), "finite": bool(torch.isfinite(dxn).all()),
+          "local_ms": local_ms, "mesh_ms": mesh_ms}
+    log(f"[14] pose-graph CG at F={F}, E={E}, edge-sharded on one rank vs local: {cg} | card {smi}")
+    check(cg["finite"] and cg["max_abs_ddx"] < SOLVE_TOL, f"sharded CG within {SOLVE_TOL} {cg}")
+
+    L, O = 512, 8192
+    X = rng.uniform(-1, 1, (L, 3)).astype(np.float32)
+    cam = rng.integers(0, F, O).astype(np.int32)
+    lm = rng.integers(0, L, O).astype(np.int32)
+    W = np.linalg.inv(poses)
+    p_obs = np.einsum("oij,oj->oi", W[cam][:, :3, :3], X[lm]) + W[cam][:, :3, 3]
+    prob = dsolver.BAProblem(*(torch.as_tensor(a, device=dev) for a in (
+        cam, lm, p_obs.astype(np.float32), np.ones(O, np.float32))))
+    xi = np.concatenate([rng.normal(0, 0.02, (F, 3)), rng.normal(0, 0.03, (F, 3))], 1)
+    xi[0] = 0.0  # the anchor
+    noisy = torch.as_tensor(poses, device=dev) @ lie.se3_exp(
+        torch.as_tensor(xi.astype(np.float32), device=dev))
+    noisy_X = torch.as_tensor(X + rng.normal(0, 0.02, X.shape).astype(np.float32), device=dev)
+    truth = np.linalg.inv(poses[0]) @ poses
+
+    def rel_err(P):
+        P = P.cpu().numpy()
+        return float(np.abs(np.linalg.inv(P[0]) @ P - truth).max())
+
+    mesh_o = multihost.make_mesh(("obs",), device=dev)
+    (P, _, cost), ba_ms = wall(lambda: dsolver.ba_gauss_newton(noisy, noisy_X, prob, mesh=mesh_o,
+                                                              n_outer=5), n=1)
+    ba = {"rel_err_start": rel_err(noisy), "rel_err_end": rel_err(P), "cost": float(cost),
+          "finite": bool(torch.isfinite(P).all()), "ms": ba_ms}
+    log(f"[14] Schur BA at F={F}, L={L}, O={O}, 5 steps, observation-sharded on one rank: {ba} "
+        f"| card {smi}")
+    check(ba["finite"] and ba["rel_err_end"] < BA_GAIN * ba["rel_err_start"],
+          f"BA error under {BA_GAIN}x its start {ba}")
+    return {"cg": cg, "ba": ba}
+
+
+def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts, launch_counts,
+               smi: str, k3_call: int = 10, slam_frames: int = 20, **cfg_overrides) -> dict:
+    """Phase 14: the entry points from disk and the multi-device path on a
+    one-rank group of the card (NCCL). `n_frames` frames of the synthetic
+    room written in the TUM layout by write_tum_sequence and read back by
+    load_tum_sequence (exact against the file's quantisation); run_system
+    on them with mesh=make_pipeline_mesh(1) at ReconstructionConfig's
+    defaults, so stage 1 is make_fragments_sharded (K3 once a fragment
+    frame) and stage 4 integrates through K1; the ATE, the scene mesh on the
+    scene's SDF; K3 replayed against its plain version on the `k3_call`-th
+    fuse of the sharded chain and on a padding fragment's empty work list;
+    the distributed solves (solves_phase); register_pairs_sharded and
+    multiway_align on the three fragments the run wrote; the `slam`
+    command over the first `slam_frames` frames against an in-process
+    slam_step loop and the truth. Counted like phase 5, a path at a time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from open3d_tpu_torch import io as rio
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.data import dataset as ds
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.models import dense_slam
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+    from open3d_tpu_torch.parallel import fragments as pf
+    from open3d_tpu_torch.parallel import pipeline as pp
+    from open3d_tpu_torch.pipelines import pose_graph as pg
+    from open3d_tpu_torch.pipelines import reconstruction as rc
+    from open3d_tpu_torch.tools import cli
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_start = time.perf_counter()
+
+    # ---- 1. from disk: write the sequence, read it back
+    depths, colors, extr, _ = synthetic.render_sequence(n_frames, intrinsic=intr, span=span,
+                                                        device=dev)
+    tum = os.path.join(out_dir, "tum")
+    t0 = time.perf_counter()
+    ds.write_tum_sequence(tum, depths, colors, torch.linalg.inv(extr), intr)
+    write_s = time.perf_counter() - t0
+    disk_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(tum) for f in fs)
+    seq = ds.load_tum_sequence(tum)
+    check(len(seq) == n_frames and seq.intrinsic.width == intr.width, f"{len(seq)} frames read")
+    d_np, c_np = depths.cpu().numpy(), colors.cpu().numpy()
+    decode_ms = []
+    for i in range(n_frames):
+        t0 = time.perf_counter()
+        d, c = seq.read_frame(i)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        want_d = np.clip(d_np[i].astype(np.float64) * 5000.0, 0, 65535).astype(
+            np.uint16).astype(np.float32) / 5000.0
+        want_c = (np.clip(c_np[i], 0, 1) * 255).astype(np.uint8).astype(np.float32) / 255.0
+        check(np.array_equal(d, want_d) and np.array_equal(c, want_c),
+              f"frame {i} read from disk equals the frame through the file's quantisation")
+    t0 = time.perf_counter()
+    for _ in seq.iter_frames():
+        pass
+    stream_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    io = {"frames": n_frames, "size": [intr.width, intr.height], "bytes_on_disk": disk_bytes,
+          "write_s": write_s, "decode_ms_per_frame_median": statistics.median(decode_ms),
+          "decode_ms_per_frame_max": max(decode_ms), "iter_frames_ms_per_frame": stream_ms}
+    log(f"[14] the sequence on disk (TUM layout, unfiltered PNGs), read back exactly: {io}")
+
+    # ---- 2. run_system on the frames from disk, stage 1 over a one-rank mesh
+    mesh = pp.make_pipeline_mesh(1, device=dev)
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+             "mesh_device": mesh.device_type}
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    check(group["backend"] == want and group["mesh_device"] == dev.type,
+          f"a {want} group on {dev.type} {group}")
+    rcfg = rc.ReconstructionConfig(path_output=os.path.join(out_dir, "recon"), **cfg_overrides)
+    stages = ("make_fragments", "register_fragments", "refine_registration", "integrate_scene")
+    with CallTimes({**dict.fromkeys(stages, rc), "global_optimization": pg}, sync,
+                   outer=stages) as times, K3Capture(k3, k3_call) as cap:
+        zero_counts()
+        t0 = time.perf_counter()
+        vbg, traj, graph = rc.run_system(seq, rcfg, mesh=mesh, device=dev)
+        sync()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+    stage_ms = {**times.ms, "run_system": run_ms}
+    log(f"[14] run_system(mesh=make_pipeline_mesh(1)) over {n_frames} frames from disk: "
+        f"{json.dumps(stage_ms)} ms, the pose-graph solves inside each stage "
+        f"{json.dumps(times.inside)} ms ({json.dumps(times.calls)} calls), launches {launches}, "
+        f"group {group} | card {smi}")
+    check(launches["fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
+    check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
+    check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
+          and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
+    check(cap.kept is not None, f"K3 reached call {k3_call} ({cap.calls} calls)")
+    traj_res, edges = trajectory_against_truth(traj, graph, extr, rcfg.fragment_size, rc, lie)
+    log(f"[14] trajectory {traj_res}; scene edges against the truth {edges}")
+    check(traj_res["ate_m"] < SCENE_ATE_TOL, f"ATE {traj_res}")
+    scene_mesh = rc.extract_scene_mesh(vbg)
+    on_sdf = mesh_on_sdf(scene_mesh, extr[0], lie, synthetic)
+    log(f"[14] scene mesh on the scene's SDF: {on_sdf}")
+    check(on_sdf["sdf_median_m"] < rcfg.voxel_size and on_sdf["sdf_q90_m"] < 2 * rcfg.voxel_size,
+          f"scene mesh on the scene's SDF {on_sdf}")
+    del vbg, scene_mesh
+
+    # K3 at the sharded chain's shapes, then on a padding fragment's list:
+    # the chain of two all-zero frames, as a rank past the last fragment runs
+    k3_main = k3_replay(k3, vbg_mod, *cap.kept, f"fragment frame {k3_call} of the sharded chain")
+    del cap
+    chain_args = (intr, rcfg.voxel_size * 2, min(rcfg.block_count, 8192), 8,
+                  rcfg.fragment_point_capacity, rcfg.depth_max, 4096, False)
+    with K3Capture(k3, 0) as pad:
+        _, _, pad_mask, _ = pp._fragment_chain(
+            depths.new_zeros((2,) + depths.shape[1:]), colors.new_zeros((2,) + colors.shape[1:]),
+            *chain_args, keyframe_interval=rcfg.n_keyframes_per_n_frame,
+            sdf_trunc=rcfg.trunc_voxel_multiplier * rcfg.voxel_size)
+    check(not bool(pad_mask.any()), "a padding fragment extracts no point")
+    k3_pad = k3_replay(k3, vbg_mod, *pad.kept, "a padding fragment's frame (no live entry)")
+    del pad, depths, colors
+
+    # ---- 3. the distributed solves, then stages 2-3 of the parallel path on
+    # the three fragments the run wrote
+    solves = solves_phase(dev, smi, sync)
+    n_frag = len(graph.poses)
+    clouds = [rio.read_point_cloud(os.path.join(rcfg.path_output, "fragments",
+                                                f"fragment_{f:03d}.ply"),
+                                   capacity=rcfg.fragment_point_capacity, device=dev)
+              for f in range(n_frag)]
+    frags = pp.FragmentBatch(
+        positions=torch.stack([c.positions for c in clouds]),
+        normals=torch.stack([c.attrs["normals"] for c in clouds]),
+        mask=torch.stack([c.mask for c in clouds]),
+        poses=torch.eye(4, device=dev).expand(n_frag, 1, 4, 4),
+        valid=torch.ones(n_frag, dtype=torch.bool, device=dev))
+    pairs = torch.tensor([[s, t] for s in range(n_frag) for t in range(s + 1, n_frag)],
+                         dtype=torch.int32, device=dev)
+    P = graph.poses
+    init = torch.stack([torch.linalg.inv(P[t]) @ P[s] for s, t in pairs.tolist()])
+    dmax = rcfg.downsample_voxel_size * 1.4
+    sync()
+    t0 = time.perf_counter()
+    regs = pp.register_pairs_sharded(frags, pairs, mesh, dmax, init=init)
+    sync()
+    reg_ms = (time.perf_counter() - t0) * 1e3
+    pair_res = {"pairs": pairs.tolist(), "fitness": regs.fitness.tolist(),
+                "inlier_rmse": regs.inlier_rmse.tolist(), "ms": reg_ms,
+                "finite": bool(torch.isfinite(regs.transformations).all()
+                               and torch.isfinite(regs.informations).all())}
+    log(f"[14] register_pairs_sharded on the run's {n_frag} fragments ({int(frags.mask.sum())} "
+        f"points), from the scene poses, one rank: {pair_res} | card {smi}")
+    check(pair_res["finite"], f"register_pairs_sharded finite {pair_res}")
+    mesh2 = pf.make_mesh(1, device=dev)
+    ev = torch.ones(len(pairs), dtype=torch.bool, device=dev)
+    rmse, poses_k = [], P
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        poses_k, r, n_in = pf.multiway_gn_step(frags.positions, frags.normals, frags.mask, poses_k,
+                                               pairs, ev, dmax, mesh=mesh2)
+        rmse.append(float(r))
+    sync()
+    mw = {"rmse_by_step": rmse, "inliers": float(n_in), "ms_per_step": (time.perf_counter() - t0)
+          * 1e3 / 4, "finite": bool(torch.isfinite(poses_k).all())}
+    log(f"[14] multiway Gauss-Newton on a (1, 1) mesh from the scene poses, 4 steps: {mw} "
+        f"| card {smi}")
+    check(mw["finite"] and rmse[-1] <= rmse[0] * (1 + 1e-3), f"multiway RMSE does not rise {mw}")
+    del frags, clouds
+
+    # ---- 4. the slam command on the directory, against a slam_step loop
+    slam_out = os.path.join(out_dir, "slam")
+    argv = ["slam", tum, "--frames", str(slam_frames), "--output", slam_out]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    with CallTimes({"slam_step": dense_slam, "extract_triangle_mesh": vbg_mod,
+                    "write_triangle_mesh": rio}, sync) as slam_times:
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        sync()
+        slam_ms = (time.perf_counter() - t0) * 1e3
+        slam_launches = launch_counts()
+    check(os.path.isfile(os.path.join(slam_out, "trajectory.log"))
+          and os.path.getsize(os.path.join(slam_out, "mesh.ply")) > 0,
+          "the slam command wrote trajectory.log and mesh.ply")
+    check(slam_launches["integrate_blocks_v2"] >= slam_frames
+          and slam_launches["march_tiles"] >= slam_frames, f"K1 and K2 each frame {slam_launches}")
+    cli_poses = rio.read_trajectory_log(os.path.join(slam_out, "trajectory.log"))
+    cfg = dense_slam.SLAMConfig()
+    model = dense_slam.create_model(cfg, device=dev)
+    md, loop_poses = None, []
+    for i in range(slam_frames):
+        depth, color = (torch.as_tensor(x, device=dev) for x in seq.read_frame(i))
+        depth = torch.where((depth > 0) & (depth < cfg.depth_max), depth, 0.0)
+        md = torch.zeros_like(depth) if md is None else md
+        res = dense_slam.slam_step(model, depth, color, md, seq.intrinsic)
+        model, md = res.model, res.raycast_depth
+        loop_poses.append(model.T_frame_to_world)
+    loop_poses = torch.stack(loop_poses)
+    gt = torch.as_tensor(seq.gt_trajectory[:slam_frames], device=dev)
+    rot, trans = lie.pose_distance(loop_poses, torch.linalg.inv(gt[0]) @ gt)
+    slam = {"frames": slam_frames, "ms": slam_ms, "inside_ms": slam_times.ms,
+            "max_abs_cli_vs_loop": float(np.abs(cli_poses - loop_poses.cpu().numpy()).max()),
+            "max_rot_err": float(rot.max()), "max_trans_err": float(trans.max()),
+            "launches": slam_launches}
+    log(f"[14] the slam command over {slam_frames} frames from disk: {slam} | card {smi}")
+    check(slam["max_abs_cli_vs_loop"] <= 1e-6, f"the slam command's poses are the loop's {slam}")
+    check(slam["max_rot_err"] < POSE_TOL and slam["max_trans_err"] < POSE_TOL,
+          f"slam poses within {POSE_TOL} of the truth {slam}")
+    del model, md, res
+
+    # ---- 5. the group goes
+    dist.destroy_process_group()
+    log(f"[14] disk and multi-device phase {time.perf_counter() - t_start:.1f} s")
+    return {"io": io, "group": group, "stage_ms": stage_ms, "launches": launches,
+            "trajectory": traj_res, "mesh_on_sdf": on_sdf,
+            "k3": {"sharded_chain": k3_main, "padding_fragment": k3_pad}, "solves": solves,
+            "register_pairs_sharded": pair_res, "multiway": mw, "slam_command": slam}
+
+
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
@@ -1939,6 +2352,16 @@ def main(argv=None) -> int:
         scene = scene_phase(dev, intr, 120, 0.4, out_dir, zero_counts, launch_counts, smi, fr)
     torch.cuda.empty_cache()
 
+    # ---- 14. from disk and over a one-rank NCCL group: phase 13's sequence
+    # written and read in the TUM layout, run_system(mesh=...) on it, the
+    # distributed solves at dryrun_multichip's sizes, the slam command
+    with tempfile.TemporaryDirectory() as out_dir:
+        disk = disk_phase(dev, intr, 120, 0.4, out_dir, zero_counts, launch_counts, smi)
+    torch.cuda.empty_cache()
+    log("[14] stage ms, phase 14 (from disk, sharded stage 1) beside phase 13 (from memory): "
+        + json.dumps({k: [disk["stage_ms"].get(k), scene["stage_ms"].get(k)]
+                      for k in scene["stage_ms"]}) + f" | card {smi}")
+
     kernels = [
         {
             "name": "integrate_blocks_v2", "route": "cuda",
@@ -1947,7 +2370,11 @@ def main(argv=None) -> int:
             "launches": launches["integrate_blocks_v2"],
             "launches_by_path": {"slam_step (phase 5)": launches["integrate_blocks_v2"],
                                  "run_system (phase 13)":
-                                     scene["launches"]["integrate_blocks_v2"]},
+                                     scene["launches"]["integrate_blocks_v2"],
+                                 "run_system(mesh=...) from disk (phase 14)":
+                                     disk["launches"]["integrate_blocks_v2"],
+                                 "slam command (phase 14)":
+                                     disk["slam_command"]["launches"]["integrate_blocks_v2"]},
             "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
             "parity_by_path": {"slam_step (phase 3)": k1_par,
                                "run_system (phase 13)": scene["k1"]},
@@ -1961,6 +2388,9 @@ def main(argv=None) -> int:
             "source": "open3d_tpu_torch/csrc/raycast.cu",
             "replaces": "open3d_tpu/ops/pallas/raycast.py:195",
             "launches": launches["march_tiles"],
+            "launches_by_path": {"slam_step (phase 5)": launches["march_tiles"],
+                                 "slam command (phase 14)":
+                                     disk["slam_command"]["launches"]["march_tiles"]},
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
             "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
@@ -1974,8 +2404,14 @@ def main(argv=None) -> int:
             "replaces": "open3d_tpu/ops/pallas/tsdf.py:56",
             "launches": fr["launches"]["fuse_blocks"],
             "launches_by_path": {"make_fragments (phase 8)": fr["launches"]["fuse_blocks"],
-                                 "run_system (phase 13)": scene["launches"]["fuse_blocks"]},
-            "max_abs_err": k3_out["max_abs_err"],
+                                 "run_system (phase 13)": scene["launches"]["fuse_blocks"],
+                                 "make_fragments_sharded (phase 14)":
+                                     disk["launches"]["fuse_blocks"]},
+            "parity_by_path": {"make_fragments (phase 9)": {k: k3_out[k] for k in
+                                                            ("colour", "no_colour")},
+                               "make_fragments_sharded (phase 14)": disk["k3"]},
+            "max_abs_err": max(k3_out["max_abs_err"],
+                               *(v["max_abs_err"] for v in disk["k3"].values())),
             "ms": k3_out["ms"], "kernel_ms": k3_out["ms"], "cold_ms": k3_out["cold_ms"],
             "spread_ms": k3_out["spread_ms"], "cold_spread_ms": k3_out["cold_spread_ms"],
             "times": MEDIAN_TIMES,
@@ -2004,6 +2440,7 @@ def main(argv=None) -> int:
                                    "make_fragments_inside_ms": fr["inside_ms"],
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
                                    "registration": registration, "scene": scene,
+                                   "disk": disk,
                                    "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """IO facade (port of open3d_tpu/io/__init__.py): point clouds, triangle
-meshes, camera trajectories, the VoxelBlockGrid npz checkpoint and pose
-graphs.
+meshes, images (PNG, io/image_io.py), camera trajectories, the
+VoxelBlockGrid npz checkpoint and pose graphs.
 
 `read_point_cloud` and `write_point_cloud` dispatch on the extension, as in
 the JAX package; only `.ply` is ported, and every other format raises
@@ -22,6 +22,7 @@ from open3d_tpu_torch import convert
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
 from open3d_tpu_torch.io import ply as ply_io
+from open3d_tpu_torch.io.image_io import read_depth, read_image, write_depth, write_image
 from open3d_tpu_torch.io.ply import read_ply, write_ply
 from open3d_tpu_torch.io.trajectory import (
     read_trajectory_log,
@@ -148,4 +149,4 @@ __all__ = ["read_point_cloud", "write_point_cloud", "read_triangle_mesh",
            "write_triangle_mesh", "read_ply", "write_ply", "read_trajectory_log",
            "write_trajectory_log", "read_trajectory_tum", "write_trajectory_tum",
            "read_voxel_block_grid", "write_voxel_block_grid", "read_pose_graph",
-           "write_pose_graph"]
+           "write_pose_graph", "read_image", "write_image", "read_depth", "write_depth"]

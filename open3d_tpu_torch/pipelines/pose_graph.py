@@ -7,7 +7,8 @@ edges, and the Open3D pose-graph JSON.
   residual under left perturbations of both poses, as the JAX package takes
   them from jax.vmap(jax.jacfwd(...)).
 - The Hessian is assembled as (F, F, 6, 6) blocks and solved densely
-  (torch.linalg.solve); a fragment has tens of nodes.
+  (torch.linalg.solve); a fragment has tens of nodes. With a mesh, the
+  inner solve is parallel/solver.py's edge-sharded matrix-free PCG.
 - The JAX package runs the LM loop in lax.while_loop; here it is a Python
   loop that reads its stop flag once per iteration (one host sync), with
   the same state updates, so the iterates are the same.
@@ -26,6 +27,8 @@ import torch
 
 from open3d_tpu_torch.core import lie
 from open3d_tpu_torch.core.platform import default_device
+from open3d_tpu_torch.parallel import multihost
+from open3d_tpu_torch.parallel import solver as dsolver
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +179,23 @@ def _solve(H, b, lam, anchor: int):
     return torch.where(info == 0, dx, float("nan")).reshape(F, 6)
 
 
+def _solve_distributed(graph: PoseGraph, weights, lam, anchor: int, mesh, axis):
+    """The dense solve's edge-sharded matrix-free replacement
+    (parallel/solver.py): block-Jacobi PCG, one all_reduce over the
+    `axis` of `mesh` a Hessian apply; without a mesh, the same CG on one
+    device."""
+    F = graph.poses.shape[0]
+    s, t = graph.edges[:, 0].long(), graph.edges[:, 1].long()
+    T_s = graph.poses[s]
+    T_t = graph.poses[t]
+    r = _edge_residual(T_s, T_t, graph.transformations)
+    J = _edge_jac(T_s, T_t, graph.transformations)
+    Lam = graph.informations * weights[:, None, None]
+    sys = dsolver.EdgeSystem(J[:, :, :6], J[:, :, 6:], Lam, r, graph.edges[:, 0],
+                             graph.edges[:, 1])
+    return dsolver.solve_pose_graph_cg(sys, F, lam, anchor, mesh=mesh, axis=axis)
+
+
 def global_optimization(
     graph: PoseGraph,
     option: GlobalOptimizationOption = GlobalOptimizationOption(),
@@ -187,11 +207,12 @@ def global_optimization(
     then pruning of loop closures whose confidence falls below
     `option.edge_prune_threshold`.
 
-    `mesh` (the JAX package's edge-sharded PCG solve) is not ported and
-    raises; `mesh_axis` names the mesh axis the edges are sharded over, so
-    it is read only with a mesh and is ignored here."""
+    With `mesh` (a DeviceMesh; every rank passes the whole graph), the
+    inner solve is the edge-sharded matrix-free PCG over its `mesh_axis`
+    (`_solve_distributed`) in place of the dense 6F x 6F solve; the result
+    is equal on every rank."""
     if mesh is not None:
-        raise NotImplementedError("the distributed pose-graph solve is not ported yet")
+        multihost._check_mesh(mesh, mesh_axis, graph.poses.device)
     # mu = preference * dmax^2 * mean(info[5, 5]) over the live edges
     valid = graph.edge_valid
     n_edges = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
@@ -209,7 +230,10 @@ def global_optimization(
         g = dataclasses.replace(graph, poses=poses)
         w = weights(conf)
         H, b, cost = _build_system(g, w)
-        dx = _solve(H, b, lam, anchor)
+        if mesh is not None:
+            dx = _solve_distributed(g, w, lam, anchor, mesh, mesh_axis)
+        else:
+            dx = _solve(H, b, lam, anchor)
         new_poses = lie.se3_exp(dx) @ poses
         new_cost = _cost(_residuals(dataclasses.replace(graph, poses=new_poses)),
                          graph.informations * w[:, None, None])

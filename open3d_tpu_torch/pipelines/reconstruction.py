@@ -22,9 +22,18 @@ fragments -> register -> refine -> integrate the scene, then the scene mesh.
    `trajectory.log`.
 
 A sequence is any object with `intrinsic`, `__len__` and
-`read_frame(i) -> (depth (H, W), color (H, W, 3))`, numpy or torch; frames
-move to `device` (default: the card). Random draws (RANSAC, FGR) come from
-one torch.Generator seeded 3 on that device, drawn from in pair order.
+`read_frame(i) -> (depth (H, W), color (H, W, 3))`, numpy or torch (a
+dataset loaded from disk by data/dataset.py is one); frames move to
+`device` (default: the card). Random draws (RANSAC, FGR) come from one
+torch.Generator seeded 3 on that device, drawn from in pair order.
+
+With a mesh (a 1-D "fragments" DeviceMesh, parallel/pipeline.py), stage 1
+runs data-parallel over the mesh's ranks: every rank loads the frames,
+builds its share of the fragments (`make_fragments_sharded`, whose chain
+integrates through K3) and receives all of them. Under a launcher every
+rank runs run_system; rank 0 alone writes the run's files, the fragments
+to build are decided on rank 0, and the ranks meet at a barrier before
+stage 2 reads the fragments. Stages 2-4 run on every rank alike.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from open3d_tpu_torch import io as pcio
 from open3d_tpu_torch.core.platform import default_device
@@ -43,6 +53,8 @@ from open3d_tpu_torch.geometry.pointcloud import PointCloud
 from open3d_tpu_torch.geometry.rgbd import RGBDImage
 from open3d_tpu_torch.ops import mesh as mops
 from open3d_tpu_torch.ops import pointcloud as pc_ops
+from open3d_tpu_torch.parallel import multihost
+from open3d_tpu_torch.parallel import pipeline as pp
 from open3d_tpu_torch.pipelines import features
 from open3d_tpu_torch.pipelines import global_registration as gr
 from open3d_tpu_torch.pipelines import odometry as odo
@@ -90,6 +102,12 @@ class ReconstructionConfig:
             yaml.safe_dump(dataclasses.asdict(self), f)
 
 
+def _writes_here() -> bool:
+    """Whether this process writes the run's files: rank 0 of a process
+    group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _fragment_dir(cfg):
     d = os.path.join(cfg.path_output, "fragments")
     os.makedirs(d, exist_ok=True)
@@ -112,19 +130,81 @@ def _fragment_ranges(n_frames: int, fragment_size: int):
 
 
 def make_fragments(sequence, cfg: ReconstructionConfig, mesh=None, device=None) -> List[str]:
-    """Stage 1, one fragment after another on `device`. Returns the fragment
-    PLY paths; fragments whose PLY exists are skipped. `mesh` (the JAX
-    package's data-parallel stage 1) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded stage 1 is not ported yet")
+    """Stage 1 on `device`. Returns the fragment PLY paths; fragments whose
+    PLY exists are skipped. Without `mesh`, one fragment after another.
+    With `mesh` (a "fragments" DeviceMesh of `device`'s type; every rank
+    calls this), the fragments are built data-parallel over its ranks by
+    make_fragments_sharded at the JAX package's mesh-path settings (twice
+    the voxel, 8^3 blocks, at most 8192 of them, 4096 a frame, the
+    fragment's chain pose graph written beside it); rank 0 decides which
+    fragments to build and writes them, and every rank returns after the
+    files exist."""
     dev = default_device(device)
     frag_dir = _fragment_dir(cfg)
     ranges = _fragment_ranges(len(sequence), cfg.fragment_size)
     paths = [os.path.join(frag_dir, f"fragment_{fid:03d}.ply") for fid in range(len(ranges))]
-    for fid, (s, e) in enumerate(ranges):
-        if not os.path.isfile(paths[fid]):
-            _process_single_fragment(sequence, cfg, fid, s, e, frag_dir, paths[fid], dev)
+    todo = [fid for fid, p in enumerate(paths) if not os.path.isfile(p)]
+    if mesh is not None:
+        multihost._check_mesh(mesh, "fragments", dev)
+        group = mesh.get_group("fragments")
+        flags = torch.zeros(len(paths), dtype=torch.int32, device=dev)
+        flags[todo] = 1
+        dist.broadcast(flags, src=dist.get_global_rank(group, 0), group=group)
+        todo = torch.nonzero(flags).flatten().tolist()
+        if todo:
+            _make_fragments_via_mesh(sequence, cfg, mesh, ranges, frag_dir, paths, todo, dev)
+        # the barrier: no rank reads the fragments before rank 0 wrote them
+        done = torch.zeros(1, device=dev)
+        dist.all_reduce(done, group=group)
+        done.item()
+        return paths
+    for fid in todo:
+        s, e = ranges[fid]
+        _process_single_fragment(sequence, cfg, fid, s, e, frag_dir, paths[fid], dev)
     return paths
+
+
+def _make_fragments_via_mesh(sequence, cfg, mesh, ranges, frag_dir, paths, todo, dev):
+    """Sharded stage 1: stack the frames (F, T, H, W), short tail fragments
+    padded with empty frames, run the sharded chain, write the same PLY and
+    pose-graph JSON files as the host path (rank 0)."""
+    T = max(e - s for s, e in ranges)
+    deps, cols = [], []
+    for fid in todo:
+        s, e = ranges[fid]
+        rgbds = [_read_rgbd(sequence, i, cfg, dev) for i in range(s, e)]
+        dd = torch.stack([r.depth for r in rgbds])
+        cc = torch.stack([r.color for r in rgbds])
+        deps.append(torch.cat([dd, dd.new_zeros((T - len(rgbds),) + dd.shape[1:])]))
+        cols.append(torch.cat([cc, cc.new_zeros((T - len(rgbds),) + cc.shape[1:])]))
+    batch = pp.make_fragments_sharded(
+        torch.stack(deps), torch.stack(cols), sequence.intrinsic, mesh,
+        voxel_size=cfg.voxel_size * 2,
+        block_count=min(cfg.block_count, 8192),
+        block_resolution=8,
+        point_capacity=cfg.fragment_point_capacity,
+        depth_max=cfg.depth_max,
+        frame_block_capacity=4096,
+        keyframe_interval=cfg.n_keyframes_per_n_frame,
+        sdf_trunc=cfg.trunc_voxel_multiplier * cfg.voxel_size,
+    )
+    if not _writes_here():
+        return
+    for k, fid in enumerate(todo):
+        s, e = ranges[fid]
+        n = e - s
+        pcd = PointCloud(positions=batch.positions[k], mask=batch.mask[k],
+                         attrs={"normals": batch.normals[k]})
+        pcio.write_point_cloud(paths[fid], pcd)
+        poses = batch.poses[k][:n].cpu().numpy()
+        X = [np.linalg.inv(poses[i]) @ poses[i + 1] for i in range(n - 1)]
+        graph = pg.PoseGraph.create(
+            poses,
+            np.asarray([(i, i + 1) for i in range(n - 1)], np.int32).reshape(-1, 2),
+            np.stack(X) if X else np.eye(4, dtype=np.float32)[None],
+            device=dev,
+        )
+        pg.write_pose_graph(os.path.join(frag_dir, f"fragment_{fid:03d}.json"), graph)
 
 
 def _odometry_pair(src_rgbd, tgt_rgbd, intr, cfg, init=None):
@@ -321,7 +401,8 @@ def register_fragments(fragment_paths: List[str], cfg: ReconstructionConfig, dev
         informations=np.stack(infos), uncertain=np.asarray(unc), device=dev,
     )
     graph = pg.global_optimization_two_pass(graph, _scene_option(cfg))
-    pg.write_pose_graph(os.path.join(_scene_dir(cfg), "global_registration.json"), graph)
+    if _writes_here():
+        pg.write_pose_graph(os.path.join(_scene_dir(cfg), "global_registration.json"), graph)
     return graph
 
 
@@ -374,7 +455,8 @@ def refine_registration(fragment_paths, graph: pg.PoseGraph, cfg: Reconstruction
         informations=torch.as_tensor(np.stack(new_infos), device=graph.poses.device),
     )
     graph2 = pg.global_optimization_two_pass(graph2, _scene_option(cfg))
-    pg.write_pose_graph(os.path.join(_scene_dir(cfg), "refined_registration.json"), graph2)
+    if _writes_here():
+        pg.write_pose_graph(os.path.join(_scene_dir(cfg), "refined_registration.json"), graph2)
     return graph2
 
 
@@ -426,15 +508,18 @@ def integrate_scene(sequence, scene_graph: pg.PoseGraph, cfg: ReconstructionConf
             pose = scene_poses[fid] @ fposes[k]
             trajectory.append(pose)
             vbg = integrate_scene_frame(vbg, _read_rgbd(sequence, i, cfg, dev), pose, intr, cfg)
-    pcio.write_trajectory_log(os.path.join(cfg.path_output, "trajectory.log"),
-                              np.stack(trajectory))
+    if _writes_here():
+        pcio.write_trajectory_log(os.path.join(cfg.path_output, "trajectory.log"),
+                                  np.stack(trajectory))
     return vbg, np.stack(trajectory)
 
 
 def run_system(sequence, cfg: ReconstructionConfig, mesh=None, device=None):
     """The four stages (ref: run_system.py:107-137). Returns (grid,
-    trajectory (N, 4, 4), scene graph). `mesh` (the JAX package's
-    data-parallel stage 1) is not ported and raises."""
+    trajectory (N, 4, 4), scene graph). With `mesh` (a 1-D "fragments"
+    DeviceMesh from parallel.pipeline.make_pipeline_mesh; every rank calls
+    this), stage 1 runs data-parallel over its ranks (make_fragments) and
+    stages 2-4 run on every rank alike; rank 0 writes the files."""
     os.makedirs(cfg.path_output, exist_ok=True)
     frags = make_fragments(sequence, cfg, mesh=mesh, device=device)
     graph = register_fragments(frags, cfg, device=device)

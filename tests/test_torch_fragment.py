@@ -174,7 +174,9 @@ def test_make_fragments_matches_jax(frames, tmp_path):
     mtime = os.path.getmtime(pt[0])
     assert trc.make_fragments(_Sequence(TIntr(*INTR), d, c), ct, device="cpu") == pt
     assert os.path.getmtime(pt[0]) == mtime
-    with pytest.raises(NotImplementedError):
+    # the mesh path (tests/test_torch_parallel_pipeline.py) refuses what is
+    # not a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trc.make_fragments(_Sequence(TIntr(*INTR), d, c), ct, mesh=object(), device="cpu")
 
 

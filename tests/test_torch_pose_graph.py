@@ -148,7 +148,10 @@ def test_pose_graph_carried_across(graphs):
 
 
 def test_distributed_solve_raises(graphs):
-    with pytest.raises(NotImplementedError):
+    """global_optimization(mesh=) takes the edge-sharded solve (held against
+    the JAX package on 4 gloo ranks in tests/test_torch_parallel.py); a
+    mesh that is not a DeviceMesh is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpg.global_optimization(graphs[1], mesh=object())
 
 

@@ -516,6 +516,8 @@ QUEUED = {
          "filter_smooth_taubin", "simplify_quadric_decimation", "simplify_vertex_clustering",
          "subdivide_loop", "subdivide_midpoint"), 10),
     "ops.pointcloud": {"extrude_linear": 10, "extrude_rotation": 10},
+    # bench waits for bench_gpu.py (item 1), draw for visualization/ (item 10)
+    "tools.cli": {"cmd_bench": 1, "cmd_draw": 10},
 }
 # The port's modules with no module at the same path in the reference: the
 # numpy interchange, and the kernel layer that replaces ops/pallas/

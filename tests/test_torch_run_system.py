@@ -53,7 +53,9 @@ def test_run_system_ate_and_artifacts(tmp_path):
     assert float(sdf.median()) < cfg.voxel_size
     assert float(torch.quantile(sdf, 0.9)) < 2 * cfg.voxel_size
 
-    with pytest.raises(NotImplementedError):
+    # the mesh path (tests/test_torch_parallel_pipeline.py) refuses what is
+    # not a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trc.run_system(seq, cfg, mesh=object(), device="cpu")
 
 
