@@ -7,7 +7,8 @@ JAX package loads here with `vbg_from_numpy(**np.load(path))` and without
 importing JAX. Any block resolution carries over: an 8^3 grid's payload is
 (C+1, 4, 128) in both packages. Pose graphs carry their seven arrays by
 field name, point clouds their full-capacity positions, mask and attributes,
-triangle meshes their full-capacity arrays, masks and attribute dicts.
+triangle meshes their full-capacity arrays, masks and attribute dicts,
+SLAC control grids their table, positions and grid size.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
 from open3d_tpu_torch.geometry.voxel_block_grid import VoxelBlockGrid, payload_shape
 from open3d_tpu_torch.models.dense_slam import SLAMConfig, SLAMModel
 from open3d_tpu_torch.pipelines.pose_graph import PoseGraph
+from open3d_tpu_torch.pipelines.slac import ControlGrid
 
 POSE_GRAPH_FIELDS = ("poses", "edges", "transformations", "informations", "uncertain",
                      "confidence", "edge_valid")
@@ -50,6 +52,19 @@ def point_cloud_to_numpy(pcd: PointCloud) -> dict:
     out = {"positions": pcd.positions.cpu().numpy(), "mask": pcd.mask.cpu().numpy()}
     out.update({k: v.cpu().numpy() for k, v in pcd.attrs.items()})
     return out
+
+
+def control_grid_from_numpy(arrays: dict, device=None) -> ControlGrid:
+    """A SLAC ControlGrid from {"table", "positions", "grid_size"}."""
+    dev = default_device(device)
+    return ControlGrid(table=torch.from_numpy(np.array(arrays["table"])).to(dev),
+                       positions=torch.from_numpy(np.array(arrays["positions"])).to(dev),
+                       grid_size=float(arrays["grid_size"]))
+
+
+def control_grid_to_numpy(cg: ControlGrid) -> dict:
+    return {"table": cg.table.cpu().numpy(), "positions": cg.positions.cpu().numpy(),
+            "grid_size": cg.grid_size}
 
 
 MESH_FIELDS = ("vertices", "triangles", "vertex_mask", "triangle_mask")

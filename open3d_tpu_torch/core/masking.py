@@ -94,3 +94,38 @@ def lexsort_rows(keys: torch.Tensor) -> torch.Tensor:
     for w in reversed(words[:-1]):
         order = order[torch.argsort(w[order], stable=True)]
     return order
+
+
+def _scatter_plan(idx: torch.Tensor, n: int):
+    """The order and segment lengths that `_scatter_add` sums `idx` (M,) by:
+    a stable sort by index; indices outside [0, n) sort last, past the n
+    segments, and are never read. Reusable for every `vals` over the same
+    indices."""
+    idx = idx.reshape(-1).to(torch.int64)
+    key = torch.where((idx >= 0) & (idx < n), idx, n)
+    return torch.argsort(key, stable=True), torch.bincount(key, minlength=n + 1)[:n]
+
+
+def _scatter_apply(vals: torch.Tensor, plan) -> torch.Tensor:
+    """Sum the rows of `vals` by a `_scatter_plan`: each index's rows in
+    input order, one segmented sum (the dropped rows trail the segments)."""
+    order, lengths = plan
+    if order.numel() == 0:
+        return vals.new_zeros((lengths.numel(),) + tuple(vals.shape[1:]))
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths, unsafe=True)
+
+
+def _scatter_add(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum the rows of `vals` (M, ...) into `n` rows by `idx` (M,), with the
+    same bits on every run: for floats a stable sort by index, then one
+    segmented sum of each index's rows in input order (no float atomics,
+    whose order on the card is whatever order they land in); integer sums
+    are exact in any order. Indices outside [0, n) are dropped, as JAX's
+    scatter with mode="drop" drops them. Returns (n, ...) in the dtype of
+    `vals`."""
+    if not vals.is_floating_point():
+        idx = idx.reshape(-1).to(torch.int64)
+        ok = (idx >= 0) & (idx < n)
+        out = vals.new_zeros((n + 1,) + tuple(vals.shape[1:]))
+        return out.index_add_(0, torch.where(ok, idx, n), vals)[:n]
+    return _scatter_apply(vals, _scatter_plan(idx, n))

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from open3d_tpu_torch.core.masking import FAR_COORD
+from open3d_tpu_torch.core.masking import FAR_COORD, _scatter_add
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.image import create_vertex_map
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
@@ -87,11 +87,9 @@ def project_to_rgbd(
     colors = pcd.colors
     if colors is not None:
         win = ok & (z <= depth[torch.clamp(flat, 0, H * W - 1)] + 1e-6)
-        C = colors.shape[-1]
-        cbuf = torch.zeros((H * W + 1, C), dtype=torch.float32, device=dev)
-        wbuf = torch.zeros((H * W + 1, 1), dtype=torch.float32, device=dev)
-        cbuf.index_add_(0, flat, torch.where(win[:, None], colors.to(torch.float32), 0.0))
-        wbuf.index_add_(0, flat, win[:, None].to(torch.float32))
+        cbuf = _scatter_add(torch.where(win[:, None], colors.to(torch.float32), 0.0), flat,
+                            H * W + 1)
+        wbuf = _scatter_add(win[:, None].to(torch.float32), flat, H * W + 1)
         color_img = (cbuf[: H * W] / torch.clamp(wbuf[: H * W], min=1.0)).reshape(H, W, -1)
     else:
         color_img = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)

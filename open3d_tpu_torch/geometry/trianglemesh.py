@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from open3d_tpu_torch.core import lie, nns
+from open3d_tpu_torch.core.masking import _scatter_add
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 
@@ -112,10 +113,8 @@ class TriangleMesh:
         """Area-weighted incident-triangle normals."""
         a, b, c = self._tri_corners()
         fn = torch.where(self.triangle_mask[:, None], torch.linalg.cross(b - a, c - a), 0.0)
-        vn = torch.zeros_like(self.vertices)
         tri = torch.clamp(self.triangles, min=0).to(torch.int64)
-        for k in range(3):
-            vn.index_add_(0, tri[:, k], fn)
+        vn = _scatter_add(fn.repeat(3, 1), tri.T.reshape(-1), self.vertices.shape[0])
         vn = vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True), min=1e-12)
         vn = torch.where(self.vertex_mask[:, None], vn, 0.0)
         return dataclasses.replace(self, vertex_attrs={**self.vertex_attrs, "normals": vn})

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from open3d_tpu_torch.core.masking import lexsort_rows
+from open3d_tpu_torch.core.masking import _scatter_add, lexsort_rows
 from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
 
 _INT_BIG = 2**30
@@ -28,11 +28,6 @@ def _segment_min(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """segment_min into n segments; an empty segment holds INT32_MAX."""
     out = torch.full((n,), _INT32_MAX, dtype=vals.dtype, device=vals.device)
     return out.scatter_reduce(0, ids.to(torch.int64), vals, "amin")
-
-
-def _segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids.to(torch.int64), vals)
 
 
 def _first_of_runs(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -191,8 +186,8 @@ def cluster_connected_triangles(mesh: TriangleMesh, max_iterations: int = 512):
     cluster_ids = torch.where(m, rank[torch.clamp(labels, min=0).to(torch.int64)], -1)
 
     seg = torch.where(m, cluster_ids, T - 1)
-    counts = _segment_sum(m.to(torch.int32), seg, T)
-    areas = _segment_sum(_cluster_areas(mesh), seg, T)
+    counts = _scatter_add(m.to(torch.int32), seg, T)
+    areas = _scatter_add(_cluster_areas(mesh), seg, T)
     cid = torch.clamp(cluster_ids, min=0).to(torch.int64)
     per_tri_count = torch.where(m, counts[cid], 0)
     per_tri_area = torch.where(m, areas[cid], 0.0)
@@ -227,8 +222,8 @@ def merge_close_vertices(mesh: TriangleMesh, eps: float) -> TriangleMesh:
     gid_s = torch.cumsum(_first_of_runs(q[order]).to(torch.int32), 0, dtype=torch.int32) - 1
     gid = torch.empty(V, dtype=torch.int32, device=dev).scatter_(0, order, gid_s).to(torch.int64)
     w = mesh.vertex_mask.to(torch.float32)
-    vsum = _segment_sum(v * w[:, None], gid, V)
-    cnt = _segment_sum(w, gid, V)
+    vsum = _scatter_add(v * w[:, None], gid, V)
+    cnt = _scatter_add(w, gid, V)
     centroid = vsum / torch.clamp(cnt, min=1.0)[:, None]
     ids = torch.arange(V, dtype=torch.int32, device=dev)
     rep = _segment_min(torch.where(mesh.vertex_mask, ids, V - 1), gid, V).to(torch.int64)
@@ -268,5 +263,5 @@ def compute_adjacency_list(mesh: TriangleMesh, max_degree: int = 32):
     ok = uniq & (local < max_degree)
     adj = torch.full((V, max_degree), -1, dtype=torch.int32, device=dev)
     adj[src_s[ok].to(torch.int64), local[ok].to(torch.int64)] = dst_s[ok]
-    degree = _segment_sum(uniq.to(torch.int32), row, V)
+    degree = _scatter_add(uniq.to(torch.int32), row, V)
     return adj, torch.clamp(degree, max=max_degree)

@@ -12,8 +12,8 @@ input's capacity (or a smaller one asked for) with an updated mask.
   core.nns and takes the smallest-eigenvalue direction of each 3x3
   covariance (core.linalg.eigh3x3, closed form).
 
-`extrude_linear` and `extrude_rotation` return a LineSet
-(geometry/lineset.py), which the port does not have yet.
+- extrude_linear and extrude_rotation sweep every point into line
+  segments and return a geometry.lineset.LineSet.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import math
 import torch
 
 from open3d_tpu_torch.core import linalg, nns
-from open3d_tpu_torch.core.masking import FAR_COORD, _div, lexsort_rows
+from open3d_tpu_torch.core.masking import FAR_COORD, _div, _scatter_add, lexsort_rows
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 
 
@@ -323,9 +323,50 @@ def compute_boundary_points(
     return pcd.mask & ((nv < 3) | (max_gap > math.radians(angle_threshold)))
 
 
-def _segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids, vals)
+def extrude_linear(pcd: PointCloud, vector, scale: float = 1.0):
+    """Sweep every point along `vector * scale`: a LineSet with one segment
+    a point (rows i and N + i), the invalid points' segments masked out."""
+    from open3d_tpu_torch.geometry.lineset import LineSet
+
+    dev = pcd.positions.device
+    v = torch.as_tensor(vector, dtype=torch.float32, device=dev) * scale
+    N = pcd.capacity
+    p0 = pcd.positions
+    p1 = torch.where(pcd.mask[:, None], p0 + v, p0)
+    seg = torch.arange(N, dtype=torch.int32, device=dev)
+    return LineSet.create(torch.cat([p0, p1]), torch.stack([seg, seg + N], dim=-1),
+                          point_mask=torch.cat([pcd.mask, pcd.mask]), line_mask=pcd.mask)
+
+
+def extrude_rotation(
+    pcd: PointCloud,
+    angle_deg: float,
+    axis,
+    resolution: int = 16,
+    translation: float = 0.0,
+):
+    """Sweep every point about `axis` (through the origin) by `angle_deg` in
+    `resolution` steps, moving `translation` along the axis over the sweep
+    (a helix): a LineSet of the (resolution + 1) copies, step k's points at
+    rows k N .. k N + N - 1, and `resolution` segments a point."""
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.geometry.lineset import LineSet
+
+    dev = pcd.positions.device
+    ax = torch.as_tensor(axis, dtype=torch.float32, device=dev)
+    ax = ax / torch.clamp(torch.linalg.norm(ax), min=1e-12)
+    N = pcd.capacity
+    R = resolution
+    ks = torch.arange(R + 1, dtype=torch.float32, device=dev) / R
+    angles = math.radians(angle_deg) * ks
+    rots = lie.so3_exp(ax[None, :] * angles[:, None])  # (R + 1, 3, 3)
+    offs = ks[:, None] * translation * ax[None, :]
+    pts = (torch.einsum("kij,nj->kni", rots, pcd.positions) + offs[:, None, :]).reshape(
+        (R + 1) * N, 3)
+    seg = torch.arange(N, dtype=torch.int32, device=dev)
+    lines = torch.cat([torch.stack([seg + k * N, seg + (k + 1) * N], dim=-1) for k in range(R)])
+    return LineSet.create(pts, lines, point_mask=pcd.mask.repeat(R + 1),
+                          line_mask=pcd.mask.repeat(R))
 
 
 def pca_partition(pcd: PointCloud, max_points: int):
@@ -357,10 +398,10 @@ def pca_partition(pcd: PointCloud, max_points: int):
     it = 0
     big = 3e38
     while oversize_any and it < N:
-        cnt = _segment_sum(w, ids, N)
-        mean = _segment_sum(pos * w[:, None], ids, N) / torch.clamp(cnt, min=1.0)[:, None]
+        cnt = _scatter_add(w, ids, N)
+        mean = _scatter_add(pos * w[:, None], ids, N) / torch.clamp(cnt, min=1.0)[:, None]
         d = (pos - mean[ids]) * w[:, None]
-        cov = _segment_sum(d[:, :, None] * d[:, None, :], ids, N) / torch.clamp(cnt, min=1.0)[:, None, None]
+        cov = _scatter_add(d[:, :, None] * d[:, None, :], ids, N) / torch.clamp(cnt, min=1.0)[:, None, None]
         _, evecs = linalg.eigh3x3(cov)
         ax = evecs[..., 2]  # largest-eigenvalue axis
         dot = torch.sum((pos - mean[ids]) * ax[ids], dim=-1)
@@ -370,7 +411,7 @@ def pca_partition(pcd: PointCloud, max_points: int):
         split = (cnt > max_points)[ids] & mask
         new_ids = torch.where(split, 2 * ids + (dot >= center[ids]).to(torch.int64), 2 * ids)
         ids, _ = compact(new_ids)
-        oversize_any = bool((_segment_sum(w, ids, N) > max_points).any())
+        oversize_any = bool((_scatter_add(w, ids, N) > max_points).any())
         it += 1
     out, n_parts = compact(ids)
     return n_parts, torch.where(mask, out, -1).to(torch.int32)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from open3d_tpu_torch.core import lie, nns
+from open3d_tpu_torch.core.masking import _scatter_add
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.parallel import multihost
 from open3d_tpu_torch.parallel.multihost import _all_gather, _axis_size, _psum
@@ -69,20 +70,19 @@ def _assemble_and_solve(H_blocks, b_blocks, counts, sq_errs, edges, n_frags, dam
     b_s, b_t = b_blocks
     s_idx, t_idx = edges[:, 0].long(), edges[:, 1].long()
     ar = torch.arange(6, device=dev)
-    H = torch.zeros((F6, F6), dtype=torch.float32, device=dev)
 
-    def scatter_block(rows_frag, cols_frag, blocks):
-        ii = (rows_frag * 6)[:, None, None] + ar[None, :, None]
-        jj = (cols_frag * 6)[:, None, None] + ar[None, None, :]
-        H.index_put_((ii.expand_as(blocks), jj.expand_as(blocks)), blocks, accumulate=True)
+    def cells(rows_frag, cols_frag):
+        return ((rows_frag * 6)[:, None, None] + ar[None, :, None]) * F6 + (
+            (cols_frag * 6)[:, None, None] + ar[None, None, :])
 
-    scatter_block(s_idx, s_idx, H_ss)
-    scatter_block(s_idx, t_idx, H_st)
-    scatter_block(t_idx, s_idx, H_st.transpose(-1, -2))
-    scatter_block(t_idx, t_idx, H_tt)
-    b = torch.zeros(F6, dtype=torch.float32, device=dev)
-    b.index_put_((s_idx[:, None] * 6 + ar,), b_s, accumulate=True)
-    b.index_put_((t_idx[:, None] * 6 + ar,), b_t, accumulate=True)
+    # every block into its cells with one deterministic scatter-add, so
+    # each rank and each repeat sums them in one order
+    H = _scatter_add(
+        torch.cat([H_ss, H_st, H_st.transpose(-1, -2), H_tt]).reshape(-1),
+        torch.cat([cells(s_idx, s_idx), cells(s_idx, t_idx), cells(t_idx, s_idx),
+                   cells(t_idx, t_idx)]).reshape(-1), F6 * F6).reshape(F6, F6)
+    b = _scatter_add(torch.cat([b_s, b_t]).reshape(-1),
+                     torch.cat([s_idx[:, None] * 6 + ar, t_idx[:, None] * 6 + ar]).reshape(-1), F6)
     if anchor_first:  # gauge-fix fragment 0 (reference_node convention)
         H[ar, ar] += 1e12
     H = H + damping * torch.eye(F6, dtype=torch.float32, device=dev)

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from open3d_tpu_torch.core import lie
+from open3d_tpu_torch.core.masking import _scatter_add
 from open3d_tpu_torch.parallel.multihost import _psum, _shard, _axis_size
 
 _READ_EVERY = 8  # CG steps between two host reads of the stop flag
@@ -68,8 +69,8 @@ def _pad_edges(sys: EdgeSystem, multiple: int) -> EdgeSystem:
 
 
 def _scatter(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    out = torch.zeros((n,) + vals.shape[1:], dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, idx.long(), vals)
+    # deterministic: the sharded and the local solve sum in one order
+    return _scatter_add(vals.to(torch.float32), idx, n)
 
 
 def _local_gradient(sys: EdgeSystem, F: int):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from open3d_tpu_torch.core import lie
+from open3d_tpu_torch.core.masking import _scatter_add
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.parallel import multihost
 from open3d_tpu_torch.parallel import solver as dsolver
@@ -153,11 +154,9 @@ def _build_system(graph: PoseGraph, weights):
         torch.einsum("ebi,ebj->eij", JtL, Jt),
     ])
     cells = torch.cat([s * F + s, s * F + t, t * F + s, t * F + t])
-    H = torch.zeros(F * F, 6, 6, dtype=torch.float32, device=r.device)
-    H = H.index_add_(0, cells, blocks).reshape(F, F, 6, 6)
-    b = torch.zeros(F, 6, dtype=torch.float32, device=r.device)
-    b = b.index_add_(0, torch.cat([s, t]), torch.cat([
-        torch.einsum("ebi,eb->ei", JsL, r), torch.einsum("ebi,eb->ei", JtL, r)]))
+    H = _scatter_add(blocks, cells, F * F).reshape(F, F, 6, 6)
+    b = _scatter_add(torch.cat([torch.einsum("ebi,eb->ei", JsL, r),
+                                torch.einsum("ebi,eb->ei", JtL, r)]), torch.cat([s, t]), F)
     return H, b, _cost(r, Lam)
 
 

@@ -153,3 +153,31 @@ def test_unique_keys(rng, n, cap):
     ut, ct = thm.unique_keys(_t(keys), cap)
     np.testing.assert_array_equal(np.asarray(uj), ut.numpy())
     assert int(cj) == int(ct)
+
+
+# ---- the deterministic scatter-add (core.masking._scatter_add) -------------
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (6, 6)], ids=["scalar", "vec3", "block6"])
+def test_scatter_add_matches_a_float64_sum(rng, shape):
+    """Within 1e-6 relative of numpy's float64 sum; out-of-range rows
+    (negative, n and beyond) are dropped, as JAX's mode="drop" drops them;
+    two calls give the same bits."""
+    n, m = 37, 4000
+    idx = rng.integers(-5, n + 5, m)
+    vals = rng.normal(size=(m,) + shape).astype(np.float32)
+    out = tmasking._scatter_add(_t(vals), _t(idx), n)
+    ref = np.zeros((n,) + shape)
+    keep = (idx >= 0) & (idx < n)
+    np.add.at(ref, idx[keep], vals[keep].astype(np.float64))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (n,) + shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+    again = tmasking._scatter_add(_t(vals), _t(idx), n)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+def test_scatter_add_empty_and_unhit_rows():
+    out = tmasking._scatter_add(torch.zeros((0, 3)), torch.zeros(0, dtype=torch.int64), 4)
+    assert torch.equal(out, torch.zeros(4, 3))
+    out = tmasking._scatter_add(torch.ones(3), torch.tensor([1, 1, 9]), 4)
+    assert out.tolist() == [0.0, 2.0, 0.0, 0.0]

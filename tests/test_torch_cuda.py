@@ -682,3 +682,23 @@ def _mesh_to_cpu(mesh):
         mesh, vertices=mesh.vertices.cpu(), triangles=mesh.triangles.cpu(),
         vertex_mask=mesh.vertex_mask.cpu(), triangle_mask=mesh.triangle_mask.cpu(),
         vertex_attrs={k: v.cpu() for k, v in mesh.vertex_attrs.items()}, triangle_attrs={})
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (6, 6)], ids=["scalar", "vec3", "block6"])
+def test_scatter_add_is_deterministic_on_the_card(cuda, shape):
+    """core.masking._scatter_add on the card, as test_torch_core.py holds it
+    on the CPU (the same sizes and bar): two calls give the same bits,
+    out-of-range rows are dropped, and the sums are within 1e-6 relative of
+    a float64 sum (the card's segmented sum may group the additions apart
+    from the CPU's sequential one)."""
+    from open3d_tpu_torch.core.masking import _scatter_add
+
+    g = torch.Generator().manual_seed(0)
+    n, m = 37, 4000
+    idx = torch.randint(-5, n + 5, (m,), generator=g)
+    vals = torch.randn((m,) + shape, generator=g)
+    a = _scatter_add(vals.to(cuda), idx.to(cuda), n)
+    b = _scatter_add(vals.to(cuda), idx.to(cuda), n)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref = _scatter_add(vals.double(), idx, n)
+    assert float((a.cpu().double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())

@@ -9,7 +9,9 @@ within 1e-4, and cloud distances squared at the search's own bars (rtol
 1e-5, atol 1e-6), as the two libraries order their additions apart;
 normals up to sign, |n . n'| > 1 - 1e-5 on valid rows. The random
 down-sample draws from a torch generator, not JAX's stream: its kept share
-is held to the JAX package's within 0.03.
+is held to the JAX package's within 0.03. The extrusions' line sets equal
+the JAX package's, points exactly for the linear one and within 1e-6 for
+the rotation (the packages' so3_exp round an ulp apart).
 """
 
 import jax
@@ -278,6 +280,34 @@ def _convert_round_trip():
     assert set(back) == set(arrays)
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def _same_lineset(b, a, atol=0.0):
+    for f in ("point_mask", "lines", "line_mask"):
+        np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)), err_msg=f)
+    _close(b.points.numpy(), a.points, atol)
+
+
+@case("extrude_linear")
+def _extrude_linear():
+    jp, tp = _pair(_surface(500, seed=13))
+    vec = (0.1, -0.2, 0.3)
+    b = tops.extrude_linear(tp, vec, scale=2.0)
+    _same_lineset(b, jops.extrude_linear(jp, vec, scale=2.0))
+    # one segment a valid point, of length |vector| * scale
+    lm = b.line_mask.numpy()
+    assert lm.sum() == tp.mask.sum()
+    _close(b.line_lengths().numpy()[lm], np.full(lm.sum(), 2.0 * np.linalg.norm(vec)), 1e-6)
+
+
+@case("extrude_rotation")
+def _extrude_rotation():
+    jp, tp = _pair(_surface(300, seed=14))
+    for kw in ({}, {"resolution": 5, "translation": 0.4}):
+        b = tops.extrude_rotation(tp, 90.0, (0.0, 0.3, 1.0), **kw)
+        # the two packages' so3_exp round an ulp apart (5.96e-8), which moves
+        # the swept points by up to 1.2e-7: points within 1e-6
+        _same_lineset(b, jops.extrude_rotation(jp, 90.0, (0.0, 0.3, 1.0), **kw), 1e-6)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -515,7 +515,6 @@ QUEUED = {
          "deform_as_rigid_as_possible", "fill_holes", "filter_smooth_laplacian",
          "filter_smooth_taubin", "simplify_quadric_decimation", "simplify_vertex_clustering",
          "subdivide_loop", "subdivide_midpoint"), 10),
-    "ops.pointcloud": {"extrude_linear": 10, "extrude_rotation": 10},
     # bench waits for bench_gpu.py (item 1), draw for visualization/ (item 10)
     "tools.cli": {"cmd_bench": 1, "cmd_draw": 10},
 }
