@@ -5,8 +5,9 @@ the primitive, gather and march probes that scripts/ ran on the TPU, the
 registration path (ICP, FPFH, RANSAC, FGR), the whole offline system
 (run_system) with its scene mesh, the same from PNG files on disk over
 a one-rank process group, with the distributed solves and the `slam`
-command, and the post-processing of the scene (SLAC, Poisson, the colour
-map, segmentation, bounding volumes).
+command, the post-processing of the scene (SLAC, Poisson, the colour
+map, segmentation, bounding volumes), and ray casting, the mesh toolbox
+and voxel grids on the scene's meshes.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -121,7 +122,23 @@ Phases:
      scene's texture); segment_plane (a wall of the room; card = CPU
      copy), DBSCAN (card = CPU copy), the AABB, PCA and minimal OBBs (every
      point inside; minimal <= AABB), the wireframe and extrude_linear on
-     the merged scene cloud.
+     the merged scene cloud;
+ 16. ray casting, the mesh toolbox and voxel grids on phase 13's output (no
+     kernel of csrc/ on this path, the counts stay 0): a RaycastingScene of
+     the whole-surface mesh (the BVH route) cast at 640x480 from the true
+     poses of frames 0, 40, 80, 119, t_hit against their true depths; 16 384
+     of those rays through the BVH and the brute force on the card, 4 096
+     through the BVH of a CPU copy; frame 60's depth unprojected and its
+     closest points on the surface (BVH against brute force on 4 096); the
+     SDF booleans of two 36 672-triangle spheres 0.5 m apart at 0.01 m, on
+     the analytic SDF and by volume (262 144 points), a 16^3 block of their
+     grid against a CPU copy (a 32^3 block's CPU copy took 22 s); decimation, clustering, both subdivisions,
+     both smoothings, clip_plane and fill_holes on the default scene mesh,
+     each against a CPU copy and on the scene's SDF, ARAP on the first
+     sphere (1 % of its vertices moved 0.2 m), the 4096^2 atlas and both
+     bakes; VoxelGrid of the whole surface's vertices against numpy, a
+     dense grid of the room carved by the 120 frames (card = CPU copy, no
+     carved centre inside the scene), the depth-10 octree.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -214,6 +231,7 @@ FPFH_CAPACITY = 16384
 # how a kernel's ms (warm, cold, floor) is read; the plain versions' and
 # the library calls' times are single readings
 MEDIAN_TIMES = "the median of 5 readings, each a mean over 20 launches; spread = largest - smallest"
+PHASE16 = "ray casting and mesh toolbox (phase 16)"
 
 
 def log(msg: str) -> None:
@@ -1519,7 +1537,7 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
               f"scene mesh ({k}) on the scene's SDF {mesh_res}")
     check(surface["triangles"] < whole_capacity, f"the capacity holds the surface {surface}")
     check(surface["triangles"] >= 100_000, f"the whole surface's triangles {surface}")
-    del whole, raw, mesh
+    del raw, mesh
 
     # ---- phase 8's fragment grid: mesh and clusters on the card against a
     # CPU copy
@@ -1556,10 +1574,10 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
            "icp_iterations": [(c["counted"], c["run"]) for c in icp_calls],
            "fragment_points": counts, "mesh_ms": mesh_times, "mesh": mesh_res,
            "fragment_mesh_card_vs_cpu": cmp}
-    # what phase 15 post-processes: the frames, the fragments on disk, the
-    # scene graph, the trajectory and the scene mesh
+    # what phases 15 and 16 post-process: the frames, the fragments on disk,
+    # the scene graph, the trajectory, the scene mesh and the whole surface
     out = {"depths": depths, "colors": colors, "extr": extr, "traj": traj, "graph": graph,
-           "mesh": rc.extract_scene_mesh(vbg), "rcfg": rcfg,
+           "mesh": rc.extract_scene_mesh(vbg), "whole": whole, "rcfg": rcfg,
            "fragment_paths": [os.path.join(frag_dir, f"fragment_{f:03d}.ply")
                               for f in range(n_frag)]}
     return res, out
@@ -2035,6 +2053,458 @@ def post_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     out["s"] = time.perf_counter() - t_start
     say(f"launches on this path {launches}; peak {out['peak_bytes']} B")
+    check(all(v == 0 for v in launches.values()), f"no kernel of csrc/ on this path {launches}")
+    return out
+
+
+def lat_long_sphere(n_theta: int, n_phi: int, r: float, centre):
+    """tests/test_bvh.py:12-28's sphere: (vertices (n_theta n_phi, 3),
+    triangles) as numpy."""
+    import numpy as np
+
+    th = np.linspace(1e-3, np.pi - 1e-3, n_theta)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack([r * np.sin(T) * np.cos(P), r * np.sin(T) * np.sin(P), r * np.cos(T)],
+                   -1).reshape(-1, 3) + np.asarray(centre)
+    i, j = np.meshgrid(np.arange(n_theta - 1), np.arange(n_phi), indexing="ij")
+    a, b = i * n_phi + j, i * n_phi + (j + 1) % n_phi
+    c, d = (i + 1) * n_phi + j, (i + 1) * n_phi + (j + 1) % n_phi
+    tris = np.stack([np.stack([a, b, c], -1), np.stack([b, d, c], -1)], 2).reshape(-1, 3)
+    return pts.astype(np.float32), tris.astype(np.int32)
+
+
+def compact_indexed(mesh):
+    """An indexed mesh's live triangles over its referenced vertices, its
+    vertex attributes kept."""
+    import torch
+
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+
+    tri = mesh.triangles[mesh.triangle_mask].long()
+    used = torch.zeros(mesh.vertices.shape[0], dtype=torch.bool, device=tri.device)
+    used[tri.reshape(-1)] = True
+    new_id = torch.cumsum(used.long(), 0) - 1
+    return TriangleMesh.create(mesh.vertices[used], new_id[tri].int(),
+                               vertex_attrs={k: v[used] for k, v in mesh.vertex_attrs.items()})
+
+
+def rays_agree(ta, ia, tb, ib) -> dict:
+    """Two routes' (or devices') casts of the same rays: the hit masks, t
+    relative, and at each differing id (a tie at a shared edge) t relative."""
+    import torch
+
+    ha, hb = torch.isfinite(ta), torch.isfinite(tb)
+    both = ha & hb
+    rel = ((ta - tb).abs() / tb.abs().clamp(min=1e-12))[both]
+    tie = both & (ia != ib)
+    return {"rays": int(ta.numel()), "hits": int(hb.sum()), "hit_mismatch": int((ha != hb).sum()),
+            "max_rel_dt": float(rel.max()) if rel.numel() else 0.0, "id_ties": int(tie.sum()),
+            "max_rel_dt_at_ties": float(((ta - tb).abs() / tb.abs())[tie].max())
+            if int(tie.sum()) else 0.0}
+
+
+def check_rays(res: dict, what: str) -> None:
+    check(res["hit_mismatch"] == 0 and res["max_rel_dt"] <= 1e-5
+          and res["max_rel_dt_at_ties"] <= 1e-6, f"{what} {res}")
+
+
+def toolbox_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
+                  n_rays: int = 16384, n_cpu_rays: int = 4096, n_brute_points: int = 4096,
+                  sphere_res=(96, 192), bool_voxel: float = 0.01, vol_points: int = 262144,
+                  block: int = 16, atlas_size: int = 4096, dense_voxel: float = 0.05,
+                  view_frames=(0, 40, 80, 119), distance_frame: int = 60) -> dict:
+    """Phase 16: ray casting, the mesh toolbox and voxel grids on phase 13's
+    output (`data`, scene_phase's dict). 16a: RaycastingScene on the whole
+    surface through the BVH, 640x480 views from the true poses of
+    `view_frames` against their true depths; the BVH against the brute
+    force on the card and against a CPU copy. 16b: closest points of
+    `distance_frame`'s unprojected depth, the BVH against the brute force.
+    16c: the SDF booleans of two lat-long spheres, on the analytic SDF, by
+    volume, and a `block`^3 block of their grid against a CPU copy. 16d: the
+    toolbox on the default scene mesh (and ARAP on the first sphere), each
+    against a CPU copy and the scene's SDF. 16e: VoxelGrid, carving and the
+    Octree. No kernel of csrc/ runs (the counts stay 0)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from open3d_tpu_torch.core import lie
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import bvh as bvh_mod
+    from open3d_tpu_torch.geometry import raycasting as rcast
+    from open3d_tpu_torch.geometry import voxelgrid as vg
+    from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+    from open3d_tpu_torch.ops import mesh as mops
+
+    cpu = torch.device("cpu")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_start = time.perf_counter()
+    vox, depth_max = data["rcfg"].voxel_size, data["rcfg"].depth_max
+    extr, depths = data["extr"], data["depths"]
+    to_scene = lie.invert_se3(extr[0])  # frame 0 (the mesh's) -> the scene's coordinates
+    out = {}
+
+    def say(msg: str) -> None:
+        log(f"[16] {msg} | card {smi} (phase {time.perf_counter() - t_start:.1f} s)")
+
+    steps = []  # the traversals' step counts (a spy on bvh._traverse)
+    traverse = bvh_mod._traverse
+
+    def counted(*a, **kw):
+        res = traverse(*a, **kw)
+        steps.append(res["steps"])
+        return res
+
+    def step_stats():
+        if not steps:
+            return None
+        s = torch.cat([x.float().cpu() for x in steps])
+        steps.clear()
+        return {"median": float(s.median()), "q99": float(torch.quantile(s, 0.99)),
+                "max": int(s.max())}
+
+    bvh_mod._traverse = counted
+    zero_counts()
+    try:
+        # ---- 16a. rays on the whole-surface scene mesh (the BVH route)
+        whole = data["whole"]
+        tri = whole.triangles[whole.triangle_mask].long()
+        soup_v = whole.vertices[tri.reshape(-1)]  # the live triangles as a soup
+        soup_t = torch.arange(soup_v.shape[0], device=dev).reshape(-1, 3)
+        T = soup_t.shape[0]
+        tree, build_ms = host_ms(lambda: bvh_mod.build_bvh(soup_v, soup_t), sync)
+        del tree
+        scene = rcast.RaycastingScene(device=dev)
+        scene.add_triangles(soup_v, soup_t)
+        # the renderer samples pixel (u, v) at u, v; create_rays_pinhole at
+        # u + 0.5, v + 0.5: shift the principal point by half a pixel
+        shifted = PinholeCameraIntrinsic(intr.width, intr.height, intr.fx, intr.fy,
+                                         intr.cx + 0.5, intr.cy + 0.5)
+        views, all_rays = [], []
+        for i, f in enumerate(view_frames):
+            ext = extr[f] @ to_scene  # mesh -> camera f
+            rays = rcast.create_rays_pinhole(shifted, ext, intr.width, intr.height)
+            res, ms = host_ms(lambda: scene.cast_rays(rays), sync)
+            t, d = res["t_hit"], depths[f]
+            # the mesh holds what the system integrated: depth up to depth_max
+            both = torch.isfinite(t) & (d > 0) & (d <= depth_max)
+            err = (t - d)[both].abs()
+            v = {"frame": f, "ms": ms, "hit_share": float(torch.isfinite(t).float().mean()),
+                 "both_share": float(both.float().mean()), "median_m": float(err.median()),
+                 "q90_m": float(torch.quantile(err, 0.9)), "steps": step_stats()}
+            if i == 0:
+                v["first_cast_includes_the_build"] = True
+            views.append(v)
+            all_rays.append(rays.reshape(-1, 6))
+            check(v["median_m"] < vox and v["q90_m"] < 2 * vox and v["both_share"] > 0.5,
+                  f"t_hit against frame {f}'s true depth {v}")
+        out["rays"] = {"triangles": T, "build_ms": build_ms, "views": views}
+        say(f"rays on the whole surface ({T} triangles, BVH built in {build_ms:.1f} ms): {views}")
+        gen = torch.Generator().manual_seed(16)
+        all_rays = torch.cat(all_rays)
+        pick = torch.randperm(all_rays.shape[0], generator=gen)[:n_rays].to(dev)
+        sample = all_rays[pick]
+        brute = rcast.RaycastingScene(bvh_threshold=1 << 30, device=dev)
+        brute.add_triangles(soup_v, soup_t)
+        a, ms_bvh = host_ms(lambda: scene.cast_rays(sample), sync)
+        step_stats()
+        b, ms_brute = host_ms(lambda: brute.cast_rays(sample), sync)
+        bvb = rays_agree(a["t_hit"], a["primitive_ids"], b["t_hit"], b["primitive_ids"])
+        bvb.update(bvh_ms=ms_bvh, brute_ms=ms_brute)
+        check_rays(bvb, "BVH against the brute force on the card")
+        host = rcast.RaycastingScene(device=cpu)
+        host.add_triangles(soup_v.cpu(), soup_t.cpu())
+        c, ms_cpu = host_ms(lambda: host.cast_rays(sample[:n_cpu_rays].cpu()), lambda: None)
+        step_stats()
+        cvc = rays_agree(a["t_hit"][:n_cpu_rays].cpu(), a["primitive_ids"][:n_cpu_rays].cpu(),
+                         c["t_hit"], c["primitive_ids"])
+        cvc["cpu_ms_with_build"] = ms_cpu
+        check_rays(cvc, "the card's BVH route against a CPU copy's")
+        out["rays"].update(bvh_vs_brute=bvb, card_vs_cpu=cvc)
+        say(f"{n_rays} rays, BVH vs brute force on the card {bvb}; {n_cpu_rays}, card vs a CPU "
+            f"copy {cvc}")
+
+        # ---- 16b. distances of a frame's unprojected depth to the surface
+        df = depths[distance_frame]
+        vv, uu = torch.nonzero((df > 0) & (df <= depth_max), as_tuple=True)
+        z = df[vv, uu]
+        cam = torch.stack([(uu.float() - intr.cx) / intr.fx * z,
+                           (vv.float() - intr.cy) / intr.fy * z, z], -1)
+        pts = lie.transform_points(lie.invert_se3(extr[distance_frame] @ to_scene), cam)
+        res, ms = host_ms(lambda: scene.compute_closest_points(pts), sync)
+        dist = torch.sqrt(res["distance2"])
+        dres = {"points": int(pts.shape[0]), "ms": ms, "median_m": float(dist.median()),
+                "q90_m": float(torch.quantile(dist, 0.9)), "steps": step_stats()}
+        sub = pts[torch.randperm(pts.shape[0], generator=gen)[:n_brute_points].to(dev)]
+        cb_, ms_b = host_ms(lambda: brute.compute_closest_points(sub), sync)
+        cv_ = scene.compute_closest_points(sub)
+        step_stats()
+        diff = torch.sqrt(cb_["distance2"]) - torch.sqrt(cv_["distance2"])
+        # the brute force's closest point (as in the reference) clamps its
+        # barycentric denominator, (2 area)^2, at 1e-9: on a smaller triangle
+        # its face point is off and it can miss the closest point (ROADMAP
+        # section 3, fault 20). Where neither route's triangle is that small
+        # the two agree within tests/test_bvh.py:89's 2e-4 m; elsewhere the
+        # BVH is never the farther
+        corner = soup_v.view(-1, 3, 3)
+        area2 = torch.linalg.cross(corner[:, 1] - corner[:, 0], corner[:, 2] - corner[:, 0]).norm(
+            dim=-1) ** 2
+        small = (area2[cb_["primitive_ids"].long()] < 1e-9) | (area2[cv_["primitive_ids"].long()]
+                                                                < 1e-9)
+        dres.update(brute_ms=ms_b, bvh_vs_brute_max_m=float(diff.abs().max()),
+                    small_triangle_share=float(small.float().mean()),
+                    bvh_vs_brute_max_m_elsewhere=float(diff[~small].abs().max()),
+                    bvh_farther_max_m=float((-diff).clamp(min=0).max()))
+        out["distances"] = dres
+        say(f"closest points of frame {distance_frame}'s depth on the whole surface {dres}")
+        check(dres["median_m"] < vox and dres["q90_m"] < 2 * vox,
+              f"frame {distance_frame}'s points on the surface {dres}")
+        check(dres["bvh_vs_brute_max_m_elsewhere"] <= 2e-4 and dres["bvh_farther_max_m"] <= 2e-4,
+              f"closest points, BVH vs brute force {dres}")
+        del scene, brute, host, soup_v, soup_t, all_rays
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- 16c. SDF booleans of two closed spheres
+        r, sep = 0.5, 0.5
+        sa = TriangleMesh.create(*lat_long_sphere(*sphere_res, r, (0.0, 0.0, 0.0)), device=dev)
+        sb = TriangleMesh.create(*lat_long_sphere(*sphere_res, r, (sep, 0.0, 0.0)), device=dev)
+        lens = np.pi * (4 * r + sep) * (2 * r - sep) ** 2 / 12
+        ball = 4.0 / 3.0 * np.pi * r ** 3
+        volumes = {"union": 2 * ball - lens, "intersection": lens, "difference": ball - lens}
+        cb = torch.tensor([sep, 0.0, 0.0], device=dev)
+
+        def analytic(p, op):
+            da, db_ = p.norm(dim=-1) - r, (p - cb).norm(dim=-1) - r
+            return {"union": torch.minimum(da, db_), "intersection": torch.maximum(da, db_),
+                    "difference": torch.maximum(da, -db_)}[op]
+
+        lo = np.array([-r, -r, -r]) - 0.05
+        hi = np.array([sep + r, r, r]) + 0.05
+        q = (torch.rand((vol_points, 3), generator=gen) * torch.tensor(hi - lo)
+             + torch.tensor(lo)).float().to(dev)
+        box = float(np.prod(hi - lo))
+        bools = {}
+        for op in ("union", "intersection", "difference"):
+            m, ms = host_ms(lambda: getattr(mops, f"boolean_{op}")(
+                sa, sb, voxel_size=bool_voxel, triangle_capacity=4_000_000), sync)
+            step_stats()
+            tri_l = m.triangles[m.triangle_mask].long()
+            vs_sdf = analytic(m.vertices[tri_l.reshape(-1)], op).abs()
+            vol_scene = rcast.RaycastingScene(device=dev)
+            vol_scene.add_triangles(m.vertices, tri_l)
+            occ, occ_ms = host_ms(lambda: vol_scene.compute_occupancy(q), sync)
+            vol = float(occ.mean()) * box
+            bools[op] = {"ms": ms, "triangles": int(tri_l.shape[0]),
+                         "vertex_sdf_median_m": float(vs_sdf.median()),
+                         "vertex_sdf_q90_m": float(torch.quantile(vs_sdf, 0.9)),
+                         "volume_m3": vol, "analytic_m3": volumes[op],
+                         "volume_rel_err": abs(vol / volumes[op] - 1.0), "occupancy_ms": occ_ms}
+            say(f"boolean_{op} at {bool_voxel} m: {bools[op]}")
+            check(bools[op]["vertex_sdf_median_m"] < bool_voxel,
+                  f"boolean_{op}'s vertices on the analytic SDF {bools[op]}")
+            check(bools[op]["volume_rel_err"] < 0.05, f"boolean_{op}'s volume {bools[op]}")
+            del m, vol_scene
+        # a block of the booleans' grid: each sphere's signed distance, card
+        # against a CPU copy
+        lo_g = (torch.minimum(sa.get_min_bound(), sb.get_min_bound()) - 0.05).cpu().numpy()
+        ctr = np.array([0.25, 0.3, 0.3])  # on both spheres' surfaces
+        i0 = np.floor((ctr - lo_g) / bool_voxel).astype(int) - block // 2
+        axes = [np.asarray(lo_g[k] + (i0[k] + np.arange(block)) * bool_voxel, np.float32)
+                for k in range(3)]
+        gp = torch.from_numpy(np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3))
+        blk = {}
+        for name, sph in (("first", sa), ("second", sb)):
+            v_np, t_np = sph.compact()
+            sides = {}
+            for where in (dev, cpu):
+                s = rcast.RaycastingScene(device=where)
+                s.add_triangles(v_np, t_np)
+                (sd, ms) = host_ms(lambda: s.compute_signed_distance(gp.to(where)),
+                                   sync if where.type == "cuda" else (lambda: None))
+                sides[where.type] = (sd.cpu(), ms)
+            (sd_a, ms_a), (sd_b, ms_b) = sides[dev.type], sides["cpu"]
+            blk[name] = {"points": int(gp.shape[0]), "max_abs_m": float((sd_a - sd_b).abs().max()),
+                         "occupancy_equal": bool(torch.equal(sd_a < 0, sd_b < 0)),
+                         "inside_share": float((sd_b < 0).float().mean()), "card_ms": ms_a,
+                         "cpu_ms": ms_b}
+            check(blk[name]["max_abs_m"] <= 1e-5 and blk[name]["occupancy_equal"]
+                  and 0 < blk[name]["inside_share"] < 1,
+                  f"the {name} sphere's signed distance on a {block}^3 block, card vs CPU {blk}")
+        step_stats()
+        out["booleans"] = {"sphere_triangles": int(sa.triangles.shape[0]), **bools, "block": blk}
+        say(f"signed distance on a {block}^3 block of the grid, card vs a CPU copy: {blk}")
+
+        # ---- 16d. the toolbox on the default scene mesh, card vs a CPU copy
+        m_card = compact_indexed(data["mesh"])
+        m_cpu = mesh_to(m_card, cpu)
+        Tm = int(m_card.triangles.shape[0])
+        scene_v = lie.transform_points(to_scene, m_card.vertices)
+        y_mid = 0.5 * float(scene_v[:, 1].min() + scene_v[:, 1].max())
+        E0 = extr[0]
+        plane_p = lie.transform_points(E0, torch.tensor([[0.0, y_mid, 0.0]], device=dev))[0]
+        plane_n = E0[:3, :3] @ torch.tensor([0.0, 1.0, 0.0], device=dev)
+        ops = {
+            "decimation": lambda m: mops.simplify_quadric_decimation(m, Tm // 10),
+            "clustering": lambda m: mops.simplify_vertex_clustering(m, 2 * vox),
+            "midpoint": lambda m: mops.subdivide_midpoint(m, 1),
+            "loop": lambda m: mops.subdivide_loop(m, 1),
+            "laplacian": lambda m: mops.filter_smooth_laplacian(m),
+            "taubin": lambda m: mops.filter_smooth_taubin(m),
+            "clip_plane": lambda m: mops.clip_plane(m, plane_p.to(m.device),
+                                                    plane_n.to(m.device)),
+            "fill_holes": lambda m: mops.fill_holes(m, 128),
+        }
+        tool = {}
+        for name, fn in ops.items():
+            a, ms = host_ms(lambda: fn(m_card), sync)
+            b, cpu_ms = host_ms(lambda: fn(m_cpu), lambda: None)
+            a_h = mesh_to(a, cpu)
+            sdf = mesh_on_sdf(a, extr[0], lie, synthetic)
+            row = {"ms": ms, "cpu_ms": cpu_ms, "triangles": int(b.num_triangles()),
+                   "vertices": int(b.num_vertices()), "sdf_median_m": sdf["sdf_median_m"],
+                   "sdf_q90_m": sdf["sdf_q90_m"]}
+            if name in ("decimation", "clustering"):  # float scores decide the topology
+                row["card_triangles"] = int(a.num_triangles())
+                row["card_vertices"] = int(a.num_vertices())
+                row["topology_equal"] = bool(torch.equal(a_h.triangles, b.triangles)
+                                             and torch.equal(a_h.triangle_mask, b.triangle_mask))
+                ok = (abs(row["card_triangles"] - row["triangles"]) <= 0.005 * row["triangles"]
+                      and abs(row["card_vertices"] - row["vertices"]) <= 0.005 * row["vertices"])
+            else:
+                ok = all(torch.equal(getattr(a_h, f), getattr(b, f))
+                         for f in ("triangles", "vertex_mask", "triangle_mask"))
+                row["max_abs_dvertex"] = float((a_h.vertices - b.vertices).abs().max())
+                ok = ok and row["max_abs_dvertex"] <= 1e-5
+            tool[name] = row
+            say(f"{name}: {row}")
+            check(ok, f"{name} on the card against a CPU copy {row}")
+            check(row["sdf_median_m"] < vox and row["sdf_q90_m"] < 2 * vox,
+                  f"{name}'s mesh on the scene's SDF {row}")
+        # ARAP on the first sphere: 1 % of the vertices moved 0.2 m; the CG
+        # needs 512 steps on 18 k vertices (at the default 32 the JAX package
+        # and the port both stop 0.35 m short)
+        nv = sa.vertices.shape[0]
+        cid = torch.randperm(nv, generator=gen)[:nv // 100].sort().values
+        shift = torch.tensor([0.2, 0.0, 0.0])
+        cpos = sa.vertices.cpu()[cid] + shift
+        arap = {}
+        for where in (dev, cpu):
+            sm = mesh_to(sa, where)
+            res, ms = host_ms(lambda: mops.deform_as_rigid_as_possible(
+                sm, cid.to(where), cpos.to(where), max_iter=2, n_cg=512),
+                sync if where.type == "cuda" else (lambda: None))
+            arap[where.type] = (res.vertices.cpu(), ms)
+        (va, ms_a), (vb, ms_b) = arap[dev.type], arap["cpu"]
+        arap_res = {"vertices": nv, "constraints": int(cid.numel()), "ms": ms_a, "cpu_ms": ms_b,
+                    "max_from_translated_m": float((va - (sa.vertices.cpu() + shift)).abs().max()),
+                    "constraint_err_m": float((va[cid] - cpos).abs().max()),
+                    "card_vs_cpu_m": float((va - vb).abs().max())}
+        tool["arap"] = arap_res
+        say(f"ARAP on the first sphere (max_iter 2, n_cg 512): {arap_res}")
+        check(arap_res["max_from_translated_m"] < 2e-2 and arap_res["constraint_err_m"] == 0.0
+              and arap_res["card_vs_cpu_m"] <= 1e-4, f"ARAP {arap_res}")
+        # the atlas and both bakes of the vertex colours (the triangle bake of
+        # each triangle's mean colour)
+        tri_c = m_card.vertex_attrs["colors"][m_card.triangles.long()].mean(1)
+        atl = {}
+        for where, m in ((dev, m_card), (cpu, m_cpu)):
+            m = dataclasses.replace(m, triangle_attrs={"colors": tri_c.to(where)})
+            wsync = sync if where.type == "cuda" else (lambda: None)
+            m, ms_uv = host_ms(lambda: mops.compute_uv_atlas(m, size=atlas_size), wsync)
+            tv, ms_v = host_ms(lambda: mops.bake_vertex_attr_textures(m, ["colors"],
+                                                                      size=atlas_size), wsync)
+            tt, ms_t = host_ms(lambda: mops.bake_triangle_attr_textures(m, ["colors"],
+                                                                        size=atlas_size), wsync)
+            atl[where.type] = (m.triangle_attrs["texture_uvs"].cpu(), tv["colors"].cpu(),
+                               tt["colors"].cpu(), (ms_uv, ms_v, ms_t))
+        (ua, ta_, tta, ms3), (ub, tb_, ttb, ms3c) = atl[dev.type], atl["cpu"]
+        atlas = {"size": atlas_size, "uvs_equal": bool(torch.equal(ua, ub)),
+                 "vertex_bake_max_abs": float((ta_ - tb_).abs().max()),
+                 "triangle_bake_max_abs": float((tta - ttb).abs().max()),
+                 "texels_filled": float((tb_.abs().sum(-1) > 0).float().mean()),
+                 "ms_atlas_vertex_triangle": ms3, "cpu_ms": ms3c}
+        tool["atlas"] = atlas
+        say(f"UV atlas and bakes: {atlas}")
+        check(atlas["uvs_equal"] and atlas["vertex_bake_max_abs"] <= 1e-5
+              and atlas["triangle_bake_max_abs"] <= 1e-5 and atlas["texels_filled"] > 0.1,
+              f"the atlas and bakes, card vs CPU {atlas}")
+        out["toolbox"] = {"triangles": Tm, **tool}
+        del atl, m_cpu
+
+        # ---- 16e. voxel grids
+        used = torch.zeros(whole.vertices.shape[0], dtype=torch.bool, device=dev)
+        used[tri.reshape(-1)] = True
+        wv, wc = whole.vertices[used], whole.vertex_attrs["colors"][used]
+        g, ms = host_ms(lambda: vg.create_from_point_cloud(wv, vox, colors=wc), sync)
+        c_np = np.floor((wv.cpu().numpy() - g.origin.cpu().numpy()) / np.float32(vox)).astype(
+            np.int64)
+        key = (c_np[:, 0] << 42) | (c_np[:, 1] << 21) | c_np[:, 2]
+        uk, inv = np.unique(key, return_inverse=True)
+        mean = np.zeros((uk.shape[0], 3))
+        np.add.at(mean, inv, wc.cpu().numpy().astype(np.float64))
+        mean /= np.bincount(inv)[:, None]
+        gc = g.coords[: uk.shape[0]].cpu().numpy().astype(np.int64)
+        gkey = (gc[:, 0] << 42) | (gc[:, 1] << 21) | gc[:, 2]
+        order = np.argsort(gkey)
+        vgr = {"points": int(wv.shape[0]), "ms": ms, "voxels": int(g.num_voxels),
+               "numpy_voxels": int(uk.shape[0]),
+               "keys_equal": bool(np.array_equal(gkey[order], uk)),
+               "colour_max_abs": float(np.abs(g.colors[: uk.shape[0]].cpu().numpy()[order]
+                                              - mean).max())}
+        inc, ms_inc = host_ms(lambda: g.check_if_included(wv), sync)
+        vgr.update(not_included=int((~inc).sum()), check_ms=ms_inc)
+        say(f"create_from_point_cloud of the whole surface's vertices at {vox} m: {vgr}")
+        check(vgr["voxels"] == vgr["numpy_voxels"] and vgr["keys_equal"]
+              and vgr["colour_max_abs"] <= 1e-6 and vgr["not_included"] == 0, f"VoxelGrid {vgr}")
+        del g, inc
+        carved = {}
+        for where in (dev, cpu):
+            grid0 = vg.create_dense([-2.5, -1.5, -2.5], [0.5, 0.5, 0.5], dense_voxel, 5.0, 3.0,
+                                    5.0, device=where)
+            wsync = sync if where.type == "cuda" else (lambda: None)
+            wsync()
+            t0 = time.perf_counter()
+            grid = grid0
+            for f in range(extr.shape[0]):
+                grid = vg.carve_depth_map(grid, depths[f].to(where), intr, extr[f].to(where))
+            wsync()
+            carved[where.type] = (grid0, grid, (time.perf_counter() - t0) * 1e3)
+        (g0, ga, ms_a), (_, gb, ms_b) = carved[dev.type], carved["cpu"]
+        gone = g0.valid & ~ga.valid
+        sdf_c = synthetic.default_scene_sdf(g0.get_voxel_centers()[gone])
+        carve = {"voxels": int(g0.num_voxels), "kept": int(ga.num_voxels),
+                 "carved": int(gone.sum()),
+                 "kept_equal": bool(torch.equal(ga.valid.cpu(), gb.valid)),
+                 "ms_120_frames": ms_a, "cpu_ms": ms_b, "min_carved_sdf_m": float(sdf_c.min())}
+        say(f"create_dense over the room at {dense_voxel} m, carved by {extr.shape[0]} frames: "
+            f"{carve}")
+        check(carve["kept_equal"] and carve["carved"] > 0 and carve["min_carved_sdf_m"]
+              > -dense_voxel, f"carving {carve}")
+        trees = {}
+        for where in (dev, cpu):
+            wsync = sync if where.type == "cuda" else (lambda: None)
+            tr, ms = host_ms(lambda: vg.octree_from_point_cloud(wv.to(where), max_depth=10), wsync)
+            leaf, ms_l = host_ms(lambda: tr.locate_leaf(wv.to(where)), wsync)
+            trees[where.type] = ([int(c) for c in tr.level_counts], int((leaf < 0).sum()), ms,
+                                 ms_l)
+        oc = {"levels_card": trees[dev.type][0],
+              "levels_equal": trees[dev.type][0] == trees["cpu"][0],
+              "not_found_card": trees[dev.type][1], "not_found_cpu": trees["cpu"][1],
+              "ms_build_locate": trees[dev.type][2:], "cpu_ms": trees["cpu"][2:]}
+        say(f"octree_from_point_cloud(max_depth=10) of the whole surface's vertices: {oc}")
+        check(oc["levels_equal"] and oc["not_found_card"] == 0 and oc["not_found_cpu"] == 0,
+              f"Octree {oc}")
+        out["voxels"] = {"grid": vgr, "carve": carve, "octree": oc}
+    finally:
+        bvh_mod._traverse = traverse
+    launches = launch_counts()
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_start
+    say(f"launches on this path {launches}")
     check(all(v == 0 for v in launches.values()), f"no kernel of csrc/ on this path {launches}")
     return out
 
@@ -2884,6 +3354,10 @@ def main(argv=None) -> int:
                                         launch_counts, smi, fr)
         torch.cuda.empty_cache()
         post = post_phase(dev, intr, scene_data, smi, zero_counts, launch_counts)
+        torch.cuda.empty_cache()
+        # ---- 16. ray casting, the mesh toolbox and voxel grids on that
+        # scene's meshes and frames (no kernel of csrc/ on this path)
+        toolbox = toolbox_phase(dev, intr, scene_data, smi, zero_counts, launch_counts)
     del scene_data
     torch.cuda.empty_cache()
 
@@ -2911,7 +3385,8 @@ def main(argv=None) -> int:
                                  "slam command (phase 14)":
                                      disk["slam_command"]["launches"]["integrate_blocks_v2"],
                                  "post-processing (phase 15)":
-                                     post["launches"]["integrate_blocks_v2"]},
+                                     post["launches"]["integrate_blocks_v2"],
+                                 PHASE16: toolbox["launches"]["integrate_blocks_v2"]},
             "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
             "parity_by_path": {"slam_step (phase 3)": k1_par,
                                "run_system (phase 13)": scene["k1"]},
@@ -2928,7 +3403,8 @@ def main(argv=None) -> int:
             "launches_by_path": {"slam_step (phase 5)": launches["march_tiles"],
                                  "slam command (phase 14)":
                                      disk["slam_command"]["launches"]["march_tiles"],
-                                 "post-processing (phase 15)": post["launches"]["march_tiles"]},
+                                 "post-processing (phase 15)": post["launches"]["march_tiles"],
+                                 PHASE16: toolbox["launches"]["march_tiles"]},
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
             "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
@@ -2945,7 +3421,8 @@ def main(argv=None) -> int:
                                  "run_system (phase 13)": scene["launches"]["fuse_blocks"],
                                  "make_fragments_sharded (phase 14)":
                                      disk["launches"]["fuse_blocks"],
-                                 "post-processing (phase 15)": post["launches"]["fuse_blocks"]},
+                                 "post-processing (phase 15)": post["launches"]["fuse_blocks"],
+                                 PHASE16: toolbox["launches"]["fuse_blocks"]},
             "parity_by_path": {"make_fragments (phase 9)": {k: k3_out[k] for k in
                                                             ("colour", "no_colour")},
                                "make_fragments_sharded (phase 14)": disk["k3"]},
@@ -2967,7 +3444,8 @@ def main(argv=None) -> int:
             "launches_by_path": {"O3DTPU_INTEGRATE_V1 run (phase 5)":
                                      launches_v1["integrate_blocks_v1"],
                                  "post-processing (phase 15)":
-                                     post["launches"]["integrate_blocks_v1"]},
+                                     post["launches"]["integrate_blocks_v1"],
+                                 PHASE16: toolbox["launches"]["integrate_blocks_v1"]},
             "max_abs_err": k4_par["max_abs_err"],
             "ms": k4_ms, "kernel_ms": k4_ms, "cold_ms": k4_cold_ms, "plain_ms": k4_plain_ms,
             "spread_ms": k4_spread, "cold_spread_ms": k4_cold_spread, "times": MEDIAN_TIMES,
@@ -2978,7 +3456,8 @@ def main(argv=None) -> int:
     ]
     for k in probe_kernels:
         k["launches_by_path"] = {"probes (phase 10)": k["launches"],
-                                 "post-processing (phase 15)": post["launches"][k["name"]]}
+                                 "post-processing (phase 15)": post["launches"][k["name"]],
+                                 PHASE16: toolbox["launches"][k["name"]]}
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
                                    "slice": slice_res, "v1_slice": v1_res,
                                    "fragment": fr["fragment"],
@@ -2986,7 +3465,7 @@ def main(argv=None) -> int:
                                    "make_fragments_inside_ms": fr["inside_ms"],
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
                                    "registration": registration, "scene": scene,
-                                   "disk": disk, "post": post,
+                                   "disk": disk, "post": post, "toolbox": toolbox,
                                    "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

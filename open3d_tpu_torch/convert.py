@@ -8,7 +8,9 @@ importing JAX. Any block resolution carries over: an 8^3 grid's payload is
 (C+1, 4, 128) in both packages. Pose graphs carry their seven arrays by
 field name, point clouds their full-capacity positions, mask and attributes,
 triangle meshes their full-capacity arrays, masks and attribute dicts,
-SLAC control grids their table, positions and grid size.
+SLAC control grids their table, positions and grid size; a BVH, a VoxelGrid
+and an Octree carry their fields by name (an Octree's levels as one
+(max_depth, N) array).
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import numpy as np
 import torch
 
 from open3d_tpu_torch.core.platform import default_device
+from open3d_tpu_torch.geometry.bvh import BVH
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
 from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
 from open3d_tpu_torch.geometry.voxel_block_grid import VoxelBlockGrid, payload_shape
+from open3d_tpu_torch.geometry.voxelgrid import Octree, VoxelGrid
 from open3d_tpu_torch.models.dense_slam import SLAMConfig, SLAMModel
 from open3d_tpu_torch.pipelines.pose_graph import PoseGraph
 from open3d_tpu_torch.pipelines.slac import ControlGrid
@@ -158,3 +162,55 @@ def slam_model_to_numpy(model: SLAMModel) -> dict:
     out["frame_id"] = np.int64(model.frame_id)
     out["config"] = dataclasses.asdict(model.config)
     return out
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(dev)
+
+
+def bvh_from_numpy(arrays: dict, device=None) -> BVH:
+    """A BVH from a dict of its fields (BVH._fields)."""
+    dev = default_device(device)
+    return BVH(**{f: int(arrays[f]) if f == "n_leaves" else _tensor(arrays[f], dev)
+                  for f in BVH._fields})
+
+
+def bvh_to_numpy(bvh: BVH) -> dict:
+    return {f: int(v) if f == "n_leaves" else v.cpu().numpy() for f, v in bvh._asdict().items()}
+
+
+VOXEL_GRID_FIELDS = ("coords", "colors", "num_voxels", "origin")
+
+
+def voxel_grid_from_numpy(arrays: dict, device=None) -> VoxelGrid:
+    """A VoxelGrid from {VOXEL_GRID_FIELDS..., "voxel_size"}."""
+    dev = default_device(device)
+    return VoxelGrid(**{f: _tensor(arrays[f], dev) for f in VOXEL_GRID_FIELDS},
+                     voxel_size=float(arrays["voxel_size"]))
+
+
+def voxel_grid_to_numpy(grid: VoxelGrid) -> dict:
+    out = {f: getattr(grid, f).cpu().numpy() for f in VOXEL_GRID_FIELDS}
+    out["voxel_size"] = grid.voxel_size
+    return out
+
+
+def octree_from_numpy(arrays: dict, device=None) -> Octree:
+    """An Octree from {"point_codes", "point_order", "level_codes" (a
+    sequence of (N,) arrays or one (max_depth, N) array), "level_counts",
+    "origin", "size", "max_depth"}."""
+    dev = default_device(device)
+    return Octree(point_codes=_tensor(arrays["point_codes"], dev),
+                  point_order=_tensor(arrays["point_order"], dev),
+                  level_codes=tuple(_tensor(c, dev) for c in arrays["level_codes"]),
+                  level_counts=tuple(_tensor(c, dev) for c in arrays["level_counts"]),
+                  origin=_tensor(arrays["origin"], dev), size=float(arrays["size"]),
+                  max_depth=int(arrays["max_depth"]))
+
+
+def octree_to_numpy(tree: Octree) -> dict:
+    return {"point_codes": tree.point_codes.cpu().numpy(),
+            "point_order": tree.point_order.cpu().numpy(),
+            "level_codes": np.stack([c.cpu().numpy() for c in tree.level_codes]),
+            "level_counts": np.stack([c.cpu().numpy() for c in tree.level_counts]),
+            "origin": tree.origin.cpu().numpy(), "size": tree.size, "max_depth": tree.max_depth}

@@ -129,3 +129,21 @@ def _scatter_add(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
         out = vals.new_zeros((n + 1,) + tuple(vals.shape[1:]))
         return out.index_add_(0, torch.where(ok, idx, n), vals)[:n]
     return _scatter_apply(vals, _scatter_plan(idx, n))
+
+
+def _unique_rows(keys: torch.Tensor, size: int, fill: int):
+    """`jnp.unique(keys, axis=0, size=size, fill_value=fill,
+    return_inverse=True)` for (N, k) int32 keys: the distinct rows in
+    lexicographic order, the first `size` kept and the rest `fill`, and each
+    input row's index among them (an index >= size for a row past the kept
+    ones)."""
+    order = lexsort_rows(keys)
+    s = keys[order]
+    first = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    first[1:] = (s[1:] != s[:-1]).any(-1)
+    gid = torch.cumsum(first.to(torch.int64), 0) - 1
+    inv = torch.empty_like(gid).scatter_(0, order, gid)
+    rows = s[first][:size]
+    uniq = torch.full((size, keys.shape[1]), fill, dtype=keys.dtype, device=keys.device)
+    uniq[:rows.shape[0]] = rows
+    return uniq, inv

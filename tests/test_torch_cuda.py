@@ -702,3 +702,83 @@ def test_scatter_add_is_deterministic_on_the_card(cuda, shape):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     ref = _scatter_add(vals.double(), idx, n)
     assert float((a.cpu().double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def _lat_long_sphere(n_theta=24, n_phi=48, r=0.5, centre=(0.0, 0.0, 0.0)):
+    """tests/test_bvh.py's sphere construction."""
+    import numpy as np
+
+    th = np.linspace(1e-3, np.pi - 1e-3, n_theta)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack([r * np.sin(T) * np.cos(P), r * np.sin(T) * np.sin(P), r * np.cos(T)],
+                   -1).reshape(-1, 3) + np.asarray(centre)
+    tris = []
+    for i in range(n_theta - 1):
+        for j in range(n_phi):
+            a, b = i * n_phi + j, i * n_phi + (j + 1) % n_phi
+            c, d = (i + 1) * n_phi + j, (i + 1) * n_phi + (j + 1) % n_phi
+            tris += [[a, b, c], [b, d, c]]
+    return pts.astype(np.float32), np.asarray(tris, np.int32)
+
+
+def test_bvh_cast_and_closest_points_match_a_cpu_copy(cuda):
+    """The batched traversal on the card against the same tree on the CPU:
+    the same hits, t within 1e-5 relative, ids equal or tied (t within 1e-6
+    relative); distances within 1e-5."""
+    import numpy as np
+
+    from open3d_tpu_torch.geometry import bvh
+
+    v, t = _lat_long_sphere(48, 96)
+    rng = np.random.default_rng(0)
+    o = (np.array([0.0, 0.0, 2.0]) + rng.normal(0, 0.3, (4096, 3))).astype(np.float32)
+    d = np.concatenate([rng.normal(0, 0.3, (4096, 2)), -np.ones((4096, 1))], -1).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tree = bvh.build_bvh(torch.from_numpy(v).to(dev), torch.from_numpy(t).to(dev))
+        ray = bvh.cast_rays(tree, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+        cp = bvh.closest_points(tree, torch.from_numpy(o).to(dev))
+        out[dev.type] = [x.cpu() for x in (*ray, *cp)]
+    (ta, ia, _, _, ja, da), (tb, ib, _, _, jb, db) = out["cuda"], out["cpu"]
+    hit = tb < 1e30
+    assert torch.equal(ta < 1e30, hit) and int(hit.sum()) > 500
+    assert torch.allclose(ta[hit], tb[hit], rtol=1e-5, atol=0)
+    tie = ia != ib
+    assert bool(((ta[tie] - tb[tie]).abs() <= 1e-6 * tb[tie].abs()).all())
+    assert float((da - db).abs().max()) <= 1e-5
+
+
+def test_boolean_on_the_card_matches_a_cpu_copy(cuda):
+    """boolean_difference of two spheres: the same topology, vertices
+    within 1e-5, on the card and on the CPU."""
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+    from open3d_tpu_torch.ops import mesh as mops
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        a = TriangleMesh.create(*_lat_long_sphere(), device=dev)
+        b = TriangleMesh.create(*_lat_long_sphere(centre=(0.33, 0.041, 0.027)), device=dev)
+        m = mops.boolean_difference(a, b, voxel_size=0.04, padding=0.0517)
+        out[dev.type] = m
+    a, b = out["cuda"], out["cpu"]
+    assert int(b.num_triangles()) > 100
+    for f in ("triangles", "triangle_mask"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert float((a.vertices.cpu() - b.vertices).abs().max()) <= 1e-5
+
+
+def test_carve_on_the_card_matches_a_cpu_copy(cuda):
+    """carve_depth_map of a dense grid by a synthetic frame: the same kept
+    voxels on the card and on the CPU."""
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import voxelgrid as vg
+
+    d, _, e, intr = synthetic.render_sequence(1, device=cuda)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = vg.create_dense([-2.5, -1.4, -2.5], [0.5, 0.5, 0.5], 0.1, 5.0, 2.8, 5.0, device=dev)
+        out[dev.type] = vg.carve_depth_map(g, d[0].to(dev), intr, e[0].to(dev))
+    a, b = out["cuda"], out["cpu"]
+    assert torch.equal(a.coords.cpu(), b.coords) and int(a.num_voxels) == int(b.num_voxels)
+    assert 0 < int(b.num_voxels) < b.coords.shape[0]

@@ -509,12 +509,6 @@ def test_probe_wrappers_refuse_indices_out_of_range():
 # Names the reference has and the port still lacks, each with the item of
 # ROADMAP.md §1 that queues it. Nothing else may be missing.
 QUEUED = {
-    "ops.mesh": dict.fromkeys(
-        ("bake_triangle_attr_textures", "bake_vertex_attr_textures", "boolean_difference",
-         "boolean_intersection", "boolean_union", "clip_plane", "compute_uv_atlas",
-         "deform_as_rigid_as_possible", "fill_holes", "filter_smooth_laplacian",
-         "filter_smooth_taubin", "simplify_quadric_decimation", "simplify_vertex_clustering",
-         "subdivide_loop", "subdivide_midpoint"), 10),
     # bench waits for bench_gpu.py (item 1), draw for visualization/ (item 10)
     "tools.cli": {"cmd_bench": 1, "cmd_draw": 10},
 }

@@ -1,4 +1,5 @@
-"""Port parity for geometry/trianglemesh.py, the mesh carry in convert.py,
+"""Port parity for geometry/trianglemesh.py, the mesh, BVH, VoxelGrid and
+Octree carries in convert.py,
 the triangle-mesh files of io/__init__.py and io/trajectory.py, against
 open3d_tpu on the same seeded numpy inputs.
 
@@ -153,6 +154,58 @@ def test_convert_round_trip():
         assert back[group].keys() == arrays[group].keys()
         for k in arrays[group]:
             assert np.array_equal(back[group][k], arrays[group][k]), (group, k)
+
+
+@pytest.mark.parametrize("kind", ["bvh", "voxel_grid", "octree"])
+def test_convert_round_trip_spatial(kind):
+    """A BVH, a VoxelGrid and an Octree the JAX package built, carried
+    across through numpy and back, answer queries as the JAX package's do."""
+    from open3d_tpu.geometry import bvh as jbvh
+    from open3d_tpu.geometry import voxelgrid as jvg
+    from open3d_tpu_torch.geometry import bvh as tbvh
+
+    rng = np.random.default_rng(7)
+    q = rng.uniform(-1.2, 1.2, (200, 3)).astype(np.float32)
+    if kind == "bvh":
+        mj, _ = _pair(4)
+        jb = jbvh.build_bvh(mj.vertices, mj.triangles, mj.triangle_mask)
+        arrays = {f: np.asarray(getattr(jb, f)) for f in jb._fields}
+        tb = convert.bvh_from_numpy(arrays, device="cpu")
+        back = convert.bvh_to_numpy(tb)
+        d = rng.normal(0, 1, (200, 3)).astype(np.float32)
+        jt, ji, _ = jbvh.cast_rays(jb, jnp.asarray(q), jnp.asarray(d))
+        tt, ti, _ = tbvh.cast_rays(tb, torch.from_numpy(q), torch.from_numpy(d))
+        np.testing.assert_array_equal(tt.numpy() < 1e30, np.asarray(jt) < 1e30)
+        _close(np.where(tt.numpy() < 1e30, tt.numpy(), 0), np.where(np.asarray(jt) < 1e30, jt, 0))
+        _, _, jd = jbvh.closest_points(jb, jnp.asarray(q))
+        _close(tbvh.closest_points(tb, torch.from_numpy(q))[2].numpy(), jd)
+    elif kind == "voxel_grid":
+        jg = jvg.create_from_point_cloud(jnp.asarray(q), 0.2, colors=jnp.asarray(np.abs(q)))
+        arrays = {f: np.asarray(getattr(jg, f)) for f in convert.VOXEL_GRID_FIELDS}
+        arrays["voxel_size"] = jg.voxel_size
+        tg = convert.voxel_grid_from_numpy(arrays, device="cpu")
+        back = convert.voxel_grid_to_numpy(tg)
+        probe = rng.uniform(-1.5, 1.5, (300, 3)).astype(np.float32)
+        np.testing.assert_array_equal(tg.check_if_included(torch.from_numpy(probe)).numpy(),
+                                      np.asarray(jg.check_if_included(jnp.asarray(probe))))
+        _close(tg.get_voxel_centers().numpy(), jg.get_voxel_centers())
+    else:
+        jo_ = jvg.octree_from_point_cloud(jnp.asarray(q), max_depth=5)
+        arrays = {"point_codes": np.asarray(jo_.point_codes),
+                  "point_order": np.asarray(jo_.point_order),
+                  "level_codes": [np.asarray(c) for c in jo_.level_codes],
+                  "level_counts": [np.asarray(c) for c in jo_.level_counts],
+                  "origin": np.asarray(jo_.origin), "size": jo_.size, "max_depth": jo_.max_depth}
+        to_ = convert.octree_from_numpy(arrays, device="cpu")
+        back = convert.octree_to_numpy(to_)
+        arrays["level_codes"] = np.stack(arrays["level_codes"])
+        arrays["level_counts"] = np.stack(arrays["level_counts"])
+        probe = np.concatenate([q, rng.uniform(-2, 2, (100, 3))]).astype(np.float32)
+        np.testing.assert_array_equal(to_.locate_leaf(torch.from_numpy(probe)).numpy(),
+                                      np.asarray(jo_.locate_leaf(jnp.asarray(probe))))
+    assert back.keys() == arrays.keys()
+    for k, v in arrays.items():
+        assert np.array_equal(np.asarray(back[k]), np.asarray(v)), k
 
 
 def _unit_quad():
