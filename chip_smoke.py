@@ -6,8 +6,9 @@ registration path (ICP, FPFH, RANSAC, FGR), the whole offline system
 (run_system) with its scene mesh, the same from PNG files on disk over
 a one-rank process group, with the distributed solves and the `slam`
 command, the post-processing of the scene (SLAC, Poisson, the colour
-map, segmentation, bounding volumes), and ray casting, the mesh toolbox
-and voxel grids on the scene's meshes.
+map, segmentation, bounding volumes), ray casting, the mesh toolbox
+and voxel grids on the scene's meshes, and the 3D ML ops, the file
+formats, the native library and the utilities on one frame.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -138,7 +139,21 @@ Phases:
      sphere (1 % of its vertices moved 0.2 m), the 4096^2 atlas and both
      bakes; VoxelGrid of the whole surface's vertices against numpy, a
      dense grid of the room carved by the 120 frames (card = CPU copy, no
-     carved centre inside the scene), the depth-10 octree.
+     carved centre inside the scene), the depth-10 octree;
+ 17. ml/ops.py, the IO formats, the native library, utils/ and
+     visualization/ on one 640x480 frame of the synthetic room (its own
+     data; no kernel of csrc/ on this path, the counts stay 0): each ML op
+     at the width of the published model that uses it (voxelize and
+     voxel_pooling with PointPillars' caps, ball_query / three_nn /
+     three_interpolate at PointNet++ SSG's, continuous_conv at
+     DeepLagrangianFluids', sparse_conv on the 2 cm voxels, 1024 rotated
+     boxes' IoUs and NMS, PointRCNN's RoI pool, PVCNN's devoxelisation, the
+     CSR helpers on continuous_conv's lists) against a CPU copy, timed by
+     CUDA events, continuous_conv's peak memory; the frame cloud in every
+     point format and a marched mesh of the room in every mesh format,
+     read back onto the card; native LZF against the Python codec both
+     ways, iter_frames on the native prefetcher; the memory statistics,
+     the profiler trace and the viewer.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -160,6 +175,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
@@ -232,6 +248,7 @@ FPFH_CAPACITY = 16384
 # the library calls' times are single readings
 MEDIAN_TIMES = "the median of 5 readings, each a mean over 20 launches; spread = largest - smallest"
 PHASE16 = "ray casting and mesh toolbox (phase 16)"
+PHASE17 = "ml, IO, native and utilities (phase 17)"
 
 
 def log(msg: str) -> None:
@@ -2912,6 +2929,579 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
             "register_pairs_sharded": pair_res, "multiway": mw, "slam_command": slam}
 
 
+def neighbour_gap(q, pts, idx_a, idx_b, r2=None) -> dict:
+    """How two neighbour tables of the same queries differ: the rows whose
+    index sets differ and, over those rows, the largest gap between their
+    sorted exact (float64) squared distances; where one row holds a
+    neighbour the other lacks (a radius search), how far it lies from r2.
+    Each device rounds the float32 |q|^2 + |t|^2 - 2 q.t its own way, so a
+    near tie may fall either way; an exact tie is reported as a gap of 0."""
+    import torch
+
+    a, b = idx_a.cpu().long(), idx_b.cpu().long()
+    rows = torch.nonzero((a != b).any(1)).reshape(-1)
+    out = {"rows": int(rows.numel()), "gap": 0.0, "edge": 0.0}
+    if not rows.numel():
+        return out
+    q64, p64 = q.detach().cpu().double()[rows], pts.detach().cpu().double()
+
+    def d2(idx):
+        i = idx[rows]
+        d = ((p64[i.clamp(min=0)] - q64[:, None]) ** 2).sum(-1)
+        return torch.sort(torch.where(i >= 0, d, float("inf")), dim=1).values
+
+    da, db = d2(a), d2(b)
+    both = torch.isfinite(da) & torch.isfinite(db)
+    if both.any():
+        out["gap"] = float((da - db).abs()[both].max())
+    one = torch.isfinite(da) ^ torch.isfinite(db)
+    if one.any():
+        extra = torch.where(torch.isfinite(da), da, db)[one]
+        out["edge"] = float((extra - r2).abs().max()) if r2 is not None else float("inf")
+    return out
+
+
+def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
+                n_points: int = 16384, n_centres: int = 1024, n_known: int = 4096,
+                n_boxes: int = 1024, n_rois: int = 128, roi_samples: int = 512,
+                max_voxels: int = 40000, mesh_voxel: float = 0.05, seq_frames: int = 4) -> dict:
+    """Phase 17: ml/ops.py, the IO formats, the native library, utils/ and
+    visualization/ on one 640x480 frame of the synthetic room (on its own
+    data, made from the script's seed). Each op at the width of the
+    published model that uses it, on the card against the same op on a CPU
+    copy, timed by CUDA events (median of five); integer outputs equal but
+    at near distance ties (reported, gated to lie within the float32
+    rounding of the expanded distance), floats within the bars stated at
+    each check. Then every format written and read back onto the card, the
+    native library (LZF both ways against the Python codec, the prefetcher
+    under iter_frames), the memory statistics, the profiler and the viewer.
+    No kernel of csrc/ runs (the counts stay 0)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from open3d_tpu_torch import io as tio
+    from open3d_tpu_torch import native
+    from open3d_tpu_torch.core import nns
+    from open3d_tpu_torch.data import dataset as tds
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry.pointcloud import PointCloud
+    from open3d_tpu_torch.geometry.rgbd import pointcloud_from_depth
+    from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
+    from open3d_tpu_torch.io import pcd as pcd_io
+    from open3d_tpu_torch.ml import ops
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.ops.kernels._timing import median_of
+    from open3d_tpu_torch.pipelines.surface_reconstruction import marching_tetrahedra_dense
+    from open3d_tpu_torch.utils import memory as mem
+    from open3d_tpu_torch.utils import timer as tmr
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gen = torch.Generator().manual_seed(17)
+    t_start = time.perf_counter()
+    out = {"ops": {}}
+
+    def say(msg: str) -> None:
+        log(f"[17] {msg} | card {smi} (phase {time.perf_counter() - t_start:.1f} s)")
+
+    def op_ms(fn):
+        """(median, spread) of five readings of fn's time: CUDA events on the
+        card, the host clock around a sync on the CPU rehearsal."""
+        if on_card:
+            return median_of(lambda: event_ms(fn)[1])
+        return median_of(lambda: host_ms(fn, sync)[1])
+
+    def rel(a, b) -> float:
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def served(fn, **tables):
+        """fn() with ml.ops' neighbour search answering from tables the card
+        computed (moved to the CPU): a CPU copy of an op then runs on the
+        card's neighbour lists, and only the op's own arithmetic is compared."""
+        real = ops.nns
+        ops.nns = types.SimpleNamespace(**{
+            **vars(real),
+            "hybrid_search": lambda *a, **k: tuple(t.cpu() for t in tables["hybrid"]),
+            "knn_search": lambda *a, **k: tuple(t.cpu() for t in tables["knn"])})
+        try:
+            return fn()
+        finally:
+            ops.nns = real
+
+    def record(name, res):
+        out["ops"][name] = res
+        say(f"{name}: {res}")
+
+    zero_counts()
+    d, c, e, _ = synthetic.render_sequence(1, intrinsic=intr, device=dev)
+    frame = pointcloud_from_depth(d[0], intr, e[0], color=c[0])
+    pts = frame.positions[frame.mask]  # the frame's valid points, world frame
+    cols = frame.attrs["colors"][frame.mask]
+    n_valid = int(pts.shape[0])
+    lo, hi = [-2.6, -1.6, -2.6], [2.6, 1.6, 2.6]  # the room, 5 x 3 x 5 m, and a margin
+    # float32 rounding of |q|^2 + |t|^2 - 2 q.t on either device: 8 ulps of the largest norms
+    d2_tol = 8 * 2.0**-24 * 2 * float((pts.double() ** 2).sum(-1).max())
+    say(f"frame {intr.width}x{intr.height}: {frame.capacity} pixels, {n_valid} valid points; "
+        f"neighbour-table tie bar {d2_tol:.3g} m^2")
+
+    # ---- 17a. voxelize: PointPillars' caps (32 points a voxel, 40 000 voxels)
+    vkw = dict(max_points_per_voxel=32, max_voxels=max_voxels)
+    va = ops.voxelize(pts, 0.02, lo, hi, **vkw)
+    vb = ops.voxelize(pts.cpu(), 0.02, lo, hi, **vkw)
+    nv = int(va[3])
+    coords_v, vpi, cnt_v = va[0][:nv], va[1][:nv].long(), va[2][:nv]
+    live = vpi >= 0
+    # a 0-d tensor divisor: the card divides by it as the CPU does (by a
+    # Python number it would multiply by the reciprocal)
+    vs_t = torch.full((), 0.02, device=dev)
+    own = torch.floor((pts[vpi.clamp(min=0)] - torch.tensor(lo, device=dev)) / vs_t).to(torch.int32)
+    res = {"points": n_valid, "voxels": nv, "points_kept": int(cnt_v.sum()),
+           "full_voxels": int((cnt_v == 32).sum()),
+           "card_eq_cpu": all(torch.equal(x.cpu(), y) for x, y in zip(va, vb)),
+           "points_in_their_voxel": bool((own == coords_v[:, None]).all(-1)[live].all()),
+           "ms": op_ms(lambda: ops.voxelize(pts, 0.02, lo, hi, **vkw))}
+    record("voxelize", res)
+    check(res["card_eq_cpu"] and res["points_in_their_voxel"] and 0 < nv <= max_voxels,
+          f"voxelize {res}")
+
+    # ---- 17b. voxel_pooling: the same points, 32-wide features, each mode
+    feat32 = randn(n_valid, 32)
+    n_occupied = int(torch.unique(torch.floor(pts / vs_t).to(torch.int32), dim=0).shape[0])
+    pool = {}
+    for pf in ("average", "center", "nearest_neighbor"):
+        for ff in ("average", "max", "min"):
+            a = ops.voxel_pooling(pts, feat32, 0.02, pf, ff, max_voxels=max_voxels)
+            b = ops.voxel_pooling(pts.cpu(), feat32.cpu(), 0.02, pf, ff, max_voxels=max_voxels)
+            pool[f"{pf}/{ff}"] = {
+                "valid_eq": bool(torch.equal(a[2].cpu(), b[2])), "valid": int(a[2].sum()),
+                "pos_rel": rel(a[0][a[2]], b[0][b[2]]), "feat_rel": rel(a[1], b[1]),
+                "ms": op_ms(lambda: ops.voxel_pooling(pts, feat32, 0.02, pf, ff,
+                                                      max_voxels=max_voxels))}
+    res = {"occupied": n_occupied, "modes": pool}
+    record("voxel_pooling", res)
+    check(all(r["valid_eq"] and r["valid"] == min(n_occupied, max_voxels) and r["pos_rel"] <= 1e-6
+              and r["feat_rel"] <= 1e-6 for r in pool.values()), f"voxel_pooling {res}")
+
+    # ---- 17c. PointNet++ SSG: ball query around 1 024 FPS centres of 16 384
+    # points; three_nn + three_interpolate from 4 096 points, C = 128
+    sub = pts[torch.randperm(n_valid, generator=gen)[:n_points].to(dev)]
+    cloud16 = PointCloud.create(sub)
+    fps = pc_ops.farthest_point_down_sample(cloud16, n_centres)
+    centres = fps.positions[fps.mask]
+    fps_ms = op_ms(lambda: pc_ops.farthest_point_down_sample(cloud16, n_centres))
+    radius = 0.1
+    bq_a = ops.ball_query(sub, centres, radius, 32)
+    bq_b = ops.ball_query(sub.cpu(), centres.cpu(), radius, 32)
+    slot = torch.arange(32, device=dev)
+    sets = [torch.where(slot.to(i.device) < n[:, None], i, -1) for i, n in (bq_a, bq_b)]
+    ga = neighbour_gap(centres, sub, sets[0], sets[1], radius**2)
+    filled = torch.where(bq_a[1][:, None] > 0, bq_a[0][:, :1], -1).expand_as(bq_a[0])
+    res = {"centres": int(centres.shape[0]), "fps_ms": fps_ms, "mean_count":
+           float(bq_a[1].float().mean()), "rows_differ": ga["rows"], "d2_gap": ga["gap"],
+           "radius_edge": ga["edge"],
+           "fill_convention": bool(torch.equal(torch.where(slot < bq_a[1][:, None], bq_a[0],
+                                                           filled), bq_a[0])),
+           "ms": op_ms(lambda: ops.ball_query(sub, centres, radius, 32))}
+    record("ball_query", res)
+    check(res["centres"] == n_centres and res["fill_convention"] and ga["gap"] <= d2_tol
+          and ga["edge"] <= d2_tol, f"ball_query {res}")
+
+    known = sub[:n_known]
+    knn_a = nns.knn_search(sub, known, 3)
+    knn_b = nns.knn_search(sub.cpu(), known.cpu(), 3)
+    gk = neighbour_gap(sub, known, knn_a[0], knn_b[0])
+    tn_a = ops.three_nn(sub, known)
+    tn_b = served(lambda: ops.three_nn(sub.cpu(), known.cpu()), knn=knn_a)
+    feat128 = randn(n_known, 128)
+    ti_a = ops.three_interpolate(feat128, *tn_a)
+    ti_b = ops.three_interpolate(feat128.cpu(), tn_a[0].cpu(), tn_a[1].cpu())
+    res = {"rows_differ": gk["rows"], "d2_gap": gk["gap"],
+           "weights_rel_on_card_lists": rel(tn_a[1], tn_b[1]),
+           "idx_eq_on_card_lists": bool(torch.equal(tn_a[0].cpu(), tn_b[0])),
+           "interpolate_rel": rel(ti_a, ti_b),
+           "three_nn_ms": op_ms(lambda: ops.three_nn(sub, known)),
+           "three_interpolate_ms": op_ms(lambda: ops.three_interpolate(feat128, *tn_a))}
+    record("three_nn, three_interpolate", res)
+    check(gk["gap"] <= d2_tol and res["idx_eq_on_card_lists"]
+          and res["weights_rel_on_card_lists"] <= 1e-6 and res["interpolate_rel"] <= 1e-6,
+          f"three_nn / three_interpolate {res}")
+
+    # ---- 17d. continuous_conv, DeepLagrangianFluids' default layer: N = M =
+    # 16 384, a 4^3 filter, 32 -> 64 channels, 64 neighbours at most
+    cin, cout, max_nn, ext = 32, 64, 64, 0.2
+    w_cc = randn(4, 4, 4, cin, cout, scale=0.1)
+    f_cc = feat32[:n_points] if n_points <= n_valid else randn(n_points, cin)
+    r_cc = ext * 0.5 * 3**0.5
+    tab_a = nns.hybrid_search(sub, sub, r_cc, max_nn)
+    tab_b = nns.hybrid_search(sub.cpu(), sub.cpu(), r_cc, max_nn)
+    gc_ = neighbour_gap(sub, sub, tab_a[0], tab_b[0], r_cc**2)
+
+    def cconv(where, tables=None):
+        f = f_cc.detach().to(where, copy=True).requires_grad_()
+        w = w_cc.detach().to(where, copy=True).requires_grad_()
+        run = lambda: ops.continuous_conv(f, sub.to(where), sub.to(where), w, ext,  # noqa: E731
+                                          max_nn=max_nn)
+        y = served(run, hybrid=tables) if tables is not None else run()
+        (y**2).sum().backward()
+        return y.detach(), f.grad, w.grad
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    ya = cconv(dev)
+    peak = (torch.cuda.max_memory_allocated() - base) if on_card else None
+    yb = cconv(cpu, tab_a)
+    literal = n_points * max_nn * cin * cout * 4  # one corner's (M, max_nn, Cin, Cout) gather
+    res = {"mean_neighbours": float(tab_a[2].float().mean()),
+           "rows_at_cap": int((tab_a[2] == max_nn).sum()), "rows_differ": gc_["rows"],
+           "d2_gap": gc_["gap"], "radius_edge": gc_["edge"], "out_rel": rel(ya[0], yb[0]),
+           "grad_features_rel": rel(ya[1], yb[1]), "grad_weights_rel": rel(ya[2], yb[2]),
+           "peak_bytes_fwd_bwd": peak, "literal_gather_bytes": literal,
+           "ms": op_ms(lambda: ops.continuous_conv(f_cc, sub, sub, w_cc, ext, max_nn=max_nn)),
+           "fwd_bwd_ms": op_ms(lambda: cconv(dev))}
+    record("continuous_conv", res)
+    check(gc_["gap"] <= d2_tol and gc_["edge"] <= d2_tol and res["out_rel"] <= 1e-5
+          and res["grad_features_rel"] <= 1e-5 and res["grad_weights_rel"] <= 1e-5
+          and (peak is None or peak < literal), f"continuous_conv {res}")
+
+    # ---- 17e. the CSR helpers on continuous_conv's neighbour lists
+    idx_cc, d2_cc, cnt_cc = tab_a
+    splits = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(cnt_cc, 0)])
+    nbr = idx_cc[idx_cc >= 0]
+    vals = d2_cc[idx_cc >= 0]
+    rs_a, rs_b = ops.reduce_subarrays_sum(vals, splits), ops.reduce_subarrays_sum(vals.cpu(),
+                                                                                  splits.cpu())
+    inv_a = ops.invert_neighbors_list(n_points, nbr, splits, k=max_nn)
+    inv_b = ops.invert_neighbors_list(n_points, nbr.cpu(), splits.cpu(), k=max_nn)
+    rd_a = ops.ragged_to_dense(nbr, splits, max_nn, -1)
+    rd_b = ops.ragged_to_dense(nbr.cpu(), splits.cpu(), max_nn, -1)
+    res = {"edges": int(nbr.shape[0]), "reduce_rel": rel(rs_a, rs_b),
+           "reduce_vs_rowsum_rel": rel(rs_a, d2_cc.sum(1)),
+           "invert_eq": all(torch.equal(x.cpu(), y) for x, y in zip(inv_a, inv_b)),
+           "invert_symmetric_share": float((inv_a[1] == cnt_cc).float().mean()),
+           "dense_eq": bool(torch.equal(rd_a.cpu(), rd_b)),
+           "dense_is_the_table": bool(torch.equal(rd_a, idx_cc.to(rd_a.dtype))),
+           "ms": [op_ms(lambda: ops.reduce_subarrays_sum(vals, splits)),
+                  op_ms(lambda: ops.invert_neighbors_list(n_points, nbr, splits, k=max_nn)),
+                  op_ms(lambda: ops.ragged_to_dense(nbr, splits, max_nn, -1))]}
+    record("reduce_subarrays_sum, invert_neighbors_list, ragged_to_dense", res)
+    check(res["reduce_rel"] <= 1e-6 and res["reduce_vs_rowsum_rel"] <= 1e-5 and res["invert_eq"]
+          and res["dense_eq"] and res["dense_is_the_table"], f"CSR helpers {res}")
+
+    # ---- 17f. submanifold sparse conv on the 2 cm voxels voxelize found
+    f_sc, w_sc = randn(nv, 32), randn(3, 3, 3, 32, 32, scale=0.1)
+    sc_a = ops.sparse_conv(f_sc, coords_v, w_sc)
+    sc_b = ops.sparse_conv(f_sc.cpu(), coords_v.cpu(), w_sc.cpu())
+    res = {"voxels": nv, "rel": rel(sc_a, sc_b),
+           "ms": op_ms(lambda: ops.sparse_conv(f_sc, coords_v, w_sc))}
+    record("sparse_conv", res)
+    check(res["rel"] <= 1e-5, f"sparse_conv {res}")
+
+    # ---- 17g. 1 024 rotated boxes: BEV and 3D IoU, NMS
+    boxes = torch.cat([torch.rand((n_boxes, 3), generator=gen) * torch.tensor([5.0, 3.0, 5.0])
+                       - torch.tensor([2.5, 1.5, 2.5]),
+                       torch.rand((n_boxes, 3), generator=gen) * 1.2 + 0.3,
+                       torch.rand((n_boxes, 1), generator=gen) * 2 * np.pi - np.pi], 1)
+    bev = boxes[:, [0, 2, 3, 5, 6]]
+    scores = torch.rand(n_boxes, generator=gen)
+    thr = 0.3
+    ib_a, ib_b = ops.iou_bev(bev.to(dev), bev.to(dev)), ops.iou_bev(bev, bev)
+    i3_a, i3_b = ops.iou_3d(boxes.to(dev), boxes.to(dev)), ops.iou_3d(boxes, boxes)
+    keep_a = ops.nms(bev.to(dev), scores.to(dev), thr)
+    keep_b = ops.nms(bev, scores, thr)
+    kept = torch.nonzero(keep_a.cpu()).reshape(-1)
+    near_thr = int(((ib_a.cpu() - thr).abs() <= 1e-5).sum())
+    res = {"pairs": n_boxes**2, "overlapping_pairs": int((ib_b > 0).sum()) - n_boxes,
+           "iou_bev_abs": float((ib_a.cpu() - ib_b).abs().max()),
+           "iou_3d_abs": float((i3_a.cpu() - i3_b).abs().max()),
+           "self_iou_min": float(torch.diagonal(ib_a).min()),
+           "kept": int(kept.numel()), "keep_eq": bool(torch.equal(keep_a.cpu(), keep_b)),
+           "pairs_within_1e-5_of_thr": near_thr,
+           "kept_overlap_max": float((ib_a.cpu()[kept][:, kept]
+                                      - torch.eye(kept.numel())).max()),
+           "iou_bev_ms": op_ms(lambda: ops.iou_bev(bev.to(dev), bev.to(dev))),
+           "iou_3d_ms": op_ms(lambda: ops.iou_3d(boxes.to(dev), boxes.to(dev))),
+           "nms_ms": op_ms(lambda: ops.nms(bev.to(dev), scores.to(dev), thr))}
+    record("iou_bev, iou_3d, nms", res)
+    check(res["iou_bev_abs"] <= 1e-5 and res["iou_3d_abs"] <= 1e-5
+          and abs(res["self_iou_min"] - 1.0) <= 1e-5 and res["kept_overlap_max"] <= thr
+          and (res["keep_eq"] or near_thr > 0), f"boxes {res}")
+
+    # ---- 17h. PointRCNN's RoI pool: 128 boxes, 512 points each, on 16 384
+    c_roi = sub[torch.randperm(n_points, generator=gen)[:n_rois].to(dev)]
+    rois = torch.cat([c_roi, (torch.rand((n_rois, 3), generator=gen) * 0.7 + 0.3).to(dev),
+                      (torch.rand((n_rois, 1), generator=gen) * 2 * np.pi - np.pi).to(dev)], 1)
+    f_roi = feat32[:n_points] if n_points <= n_valid else randn(n_points, 32)
+    pa = ops.roi_pool(sub, f_roi, rois, roi_samples)
+    pb = ops.roi_pool(sub.cpu(), f_roi.cpu(), rois.cpu(), roi_samples)
+    # each point's float64 distance inside the nearest face of each box
+    r64, s64 = rois.cpu().double(), sub.cpu().double()
+    rel64 = s64[None] - r64[:, None, :3]
+    cz, sz = torch.cos(-r64[:, 6])[:, None], torch.sin(-r64[:, 6])[:, None]
+    loc = torch.stack([rel64[..., 0] * cz - rel64[..., 1] * sz,
+                       rel64[..., 0] * sz + rel64[..., 1] * cz, rel64[..., 2]], -1)
+    margin = (r64[:, None, 3:6] * 0.5 - loc.abs()).amin(-1)  # > 0 inside
+    edge_box = (margin.abs() <= 1e-5).any(1)
+    same = (pa[0].cpu() == pb[0]).all(-1).all(-1) & (pa[1].cpu() == pb[1])
+    inside64 = (margin > 1e-5).sum(1)
+    res = {"boxes": n_rois, "empty": int(pa[1].sum()),
+           "points_median": float(inside64.double().median()),
+           "boxes_differ": int((~same).sum()), "boxes_with_a_point_on_a_face": int(edge_box.sum()),
+           "ms": op_ms(lambda: ops.roi_pool(sub, f_roi, rois, roi_samples))}
+    record("roi_pool", res)
+    check(bool((same | edge_box).all()) and res["empty"] < n_rois, f"roi_pool {res}")
+
+    # ---- 17i. PVCNN's trilinear devoxelize: R 32, C 64, 16 384 points
+    R, C = 32, 64
+    vox = randn(C, R, R, R)
+    g_pts = (sub - torch.tensor(lo, device=dev)) / (torch.tensor(hi, device=dev)
+                                                    - torch.tensor(lo, device=dev)) * (R - 1)
+
+    def devox(where):
+        v = vox.detach().to(where, copy=True).requires_grad_()
+        o, i, w = ops.trilinear_devoxelize(v, g_pts.to(where), R)
+        (o**2).sum().backward()
+        return o.detach(), i, w, v.grad
+
+    ta, tb = devox(dev), devox(cpu)
+    res = {"idx_eq": bool(torch.equal(ta[1].cpu(), tb[1])), "w_rel": rel(ta[2], tb[2]),
+           "w_sum_err": float((ta[2].sum(-1) - 1).abs().max()), "out_rel": rel(ta[0], tb[0]),
+           "grad_rel": rel(ta[3], tb[3]),
+           "ms": op_ms(lambda: ops.trilinear_devoxelize(vox, g_pts, R)),
+           "fwd_bwd_ms": op_ms(lambda: devox(dev))}
+    record("trilinear_devoxelize", res)
+    check(res["idx_eq"] and res["w_rel"] <= 1e-6 and res["w_sum_err"] <= 1e-5
+          and res["out_rel"] <= 1e-6 and res["grad_rel"] <= 1e-6, f"trilinear_devoxelize {res}")
+
+    # ---- 17j. formats: the frame cloud with normals and colours, every
+    # point format; a marched mesh of the room, every mesh format
+    nrm = synthetic.sdf_normal(synthetic.default_scene_sdf, pts)
+    cloud = PointCloud.create(pts, normals=nrm, colors=cols)
+    host = cloud.to_numpy()
+    q8 = np.clip(host["colors"].astype(np.float64) * 255.0, 0, 255).astype(np.uint8)
+    col_q = q8.astype(np.float32) / 255.0  # what a byte-per-channel format stores
+    fmt = {}
+
+    def back(path):
+        p = tio.read_point_cloud(path, device=dev)
+        check(p.positions.device.type == dev.type, f"{path} read onto {dev}")
+        return p.to_numpy()
+
+    def exact(a, b):
+        return bool(np.array_equal(a, b))
+
+    def text_err(a, b):  # printed with 7 decimals: within half a unit of the last, and a ulp
+        return float((np.abs(a - b) - (5e-8 + np.abs(b) * 2.0**-23)).max())
+
+    for name, write in (("pcd binary", lambda p: tio.write_point_cloud(p, cloud)),
+                        ("pcd ascii", lambda p: pcd_io.write_pcd(p, host["positions"],
+                                                                 host["normals"], host["colors"],
+                                                                 binary=False)),
+                        ("pcd binary_compressed", lambda p: pcd_io.write_pcd_compressed(
+                            p, host["positions"], host["normals"], host["colors"]))):
+        path = os.path.join(out_dir, name.replace(" ", "_") + ".pcd")
+        _, w_ms = host_ms(lambda: write(path), sync)
+        got, r_ms = host_ms(lambda: back(path), sync)
+        fmt[name] = {"bytes": os.path.getsize(path), "write_ms": w_ms, "read_ms": r_ms,
+                     "exact": exact(got["positions"], host["positions"])
+                     and exact(got["normals"], host["normals"]) and exact(got["colors"], col_q)}
+    for ext in (".xyz", ".xyzn", ".pts", ".npz"):
+        path = os.path.join(out_dir, "cloud" + ext)
+        _, w_ms = host_ms(lambda: tio.write_point_cloud(path, cloud), sync)
+        got, r_ms = host_ms(lambda: back(path), sync)
+        r = {"bytes": os.path.getsize(path), "write_ms": w_ms, "read_ms": r_ms}
+        if ext == ".npz":
+            r["exact"] = all(exact(got[k], host[k]) for k in host)
+        else:
+            r["text_excess"] = text_err(got["positions"], host["positions"])
+            if ext == ".xyzn":
+                r["text_excess"] = max(r["text_excess"], text_err(got["normals"], host["normals"]))
+        fmt[ext] = r
+    # splat: the colours as SH DC, opacity, scale and rotation from the seed
+    n_c = host["positions"].shape[0]
+    q = torch.randn((n_c, 4), generator=gen)
+    q = q / q.norm(dim=1, keepdim=True)
+    q = torch.where(q[:, :1] < 0, -q, q)
+    sattrs = {"f_dc": (torch.as_tensor(host["colors"]) - 0.5) / 0.28209479177387814,
+              "opacity": torch.rand((n_c, 1), generator=gen) * 6 - 3,
+              "scale": torch.rand((n_c, 3), generator=gen) * 0.02 + 0.002, "rot": q}
+    splat = PointCloud.create(pts, **{k: v.to(dev) for k, v in sattrs.items()})
+    path = os.path.join(out_dir, "cloud.splat")
+    _, w_ms = host_ms(lambda: tio.write_point_cloud(path, splat), sync)
+    got, r_ms = host_ms(lambda: back(path), sync)
+    oa, ob = np.lexsort(host["positions"].T), np.lexsort(got["positions"].T)
+    sig = lambda x: 1 / (1 + np.exp(-x.reshape(-1).astype(np.float64)))  # noqa: E731
+    fmt["splat"] = {"bytes": os.path.getsize(path), "write_ms": w_ms, "read_ms": r_ms,
+                    "exact_positions_scale": exact(got["positions"][ob], host["positions"][oa])
+                    and exact(got["scale"][ob], sattrs["scale"].numpy()[oa]),
+                    "colour_err": float(np.abs(got["f_dc"][ob] - sattrs["f_dc"].numpy()[oa]).max()
+                                        * 0.28209479177387814),
+                    "alpha_err": float(np.abs(sig(got["opacity"][ob])
+                                              - sig(sattrs["opacity"].numpy()[oa])).max()),
+                    "rot_err": float(np.abs(got["rot"][ob] - q.numpy()[oa]).max())}
+    check(all(fmt[k]["exact"] for k in ("pcd binary", "pcd ascii", "pcd binary_compressed",
+                                        ".npz"))
+          and all(fmt[k]["text_excess"] <= 0 for k in (".xyz", ".xyzn", ".pts"))
+          and fmt["splat"]["exact_positions_scale"] and fmt["splat"]["colour_err"] <= 0.5 / 255 + 1e-6
+          and fmt["splat"]["alpha_err"] <= 0.5 / 255 + 1e-6 and fmt["splat"]["rot_err"] <= 0.02,
+          f"point formats {fmt}")
+
+    # the room's SDF marched at mesh_voxel
+    axes = [torch.arange(a, b + mesh_voxel / 2, mesh_voxel, device=dev) for a, b in zip(lo, hi)]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    field = synthetic.default_scene_sdf(grid.reshape(-1, 3)).reshape(grid.shape[:3])
+    cap = 400_000
+    soup_mesh = marching_tetrahedra_dense(field, 0.0, origin=lo, spacing=mesh_voxel,
+                                          triangle_capacity=cap)
+    check(int(soup_mesh.num_triangles()) < cap, f"the room's mesh fits {cap} triangles")
+    mv, mt = soup_mesh.compact()  # the soup's vertices merged: what the writers write
+    room = TriangleMesh.create(mv, mt, device=dev)
+    soup = mv[mt]
+    for ext in (".stl", ".off", ".glb"):
+        path = os.path.join(out_dir, "room" + ext)
+        _, w_ms = host_ms(lambda: tio.write_triangle_mesh(path, room), sync)
+        m, r_ms = host_ms(lambda: tio.read_triangle_mesh(path, device=dev), sync)
+        check(m.vertices.device.type == dev.type, f"{path} read onto {dev}")
+        # each format keeps the triangles' order and their corners' (STL
+        # welds the vertices anew): the triangle soups are compared in order
+        got = m.vertices.cpu().numpy()[m.triangles.cpu().numpy()]
+        r = {"bytes": os.path.getsize(path), "write_ms": w_ms, "read_ms": r_ms,
+             "triangles": int(got.shape[0]), "vertices": int(m.vertices.shape[0])}
+        if got.shape != soup.shape:
+            r["exact"] = False
+        elif ext == ".off":
+            r["text_excess"] = text_err(got, soup)
+        else:
+            r["exact"] = exact(got, soup)
+        fmt["mesh" + ext] = r
+    check(len(mt) > 10000 and fmt["mesh.stl"].get("exact") and fmt["mesh.glb"].get("exact")
+          and fmt["mesh.off"].get("text_excess", 1.0) <= 0, f"mesh formats {fmt}")
+    out["formats"] = fmt
+    say(f"formats (room mesh {len(mt)} triangles over {len(mv)} vertices): {fmt}")
+
+    # ---- 17k. the native library: LZF both ways, the prefetcher
+    lib = native.load()
+    check(lib is not None, "native.load() built the library (g++)")
+    raw = host["positions"].tobytes()
+    c_nat, ms_c = host_ms(lambda: native.lzf_compress(raw), lambda: None)
+    c_py = pcd_io.lzf_compress(raw)
+    d_py, ms_dpy = host_ms(lambda: pcd_io.lzf_decompress(c_nat, len(raw)), lambda: None)
+    d_nat, ms_d = host_ms(lambda: native.lzf_decompress(c_py, len(raw)), lambda: None)
+    lzf = {"bytes": len(raw), "native_ratio": len(c_nat) / len(raw), "native_compress_ms": ms_c,
+           "python_decodes_native": d_py == raw, "python_decode_ms": ms_dpy,
+           "native_decodes_python": d_nat == raw, "native_decode_ms": ms_d,
+           "native_round_trip": native.lzf_decompress(c_nat, len(raw)) == raw}
+    seq_d, seq_c, seq_e, _ = synthetic.render_sequence(seq_frames, intrinsic=intr, span=0.2,
+                                                      device=dev)
+    root = tds.write_tum_sequence(os.path.join(out_dir, "tum"), seq_d, seq_c,
+                                  torch.linalg.inv(seq_e), intr)
+    seq = tds.load_tum_sequence(root)
+    routes = []
+    real_pf = native.FilePrefetcher
+
+    class Spy(real_pf):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            routes.append(self.native)
+
+    native.FilePrefetcher = Spy
+    try:
+        frames, it_ms = host_ms(lambda: list(seq.iter_frames()), lambda: None)
+    finally:
+        native.FilePrefetcher = real_pf
+    ref_frames, rf_ms = host_ms(lambda: [seq.read_frame(i) for i in range(len(seq))],
+                                lambda: None)
+    pf = {"frames": len(frames), "routes": routes, "iter_ms": it_ms, "read_frame_ms": rf_ms,
+          "equal": len(frames) == len(seq) and all(
+              np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(frames, ref_frames))}
+    out["native"] = {"lzf": lzf, "prefetch": pf}
+    say(f"native library {lib._name}: LZF {lzf}; iter_frames over {seq_frames} TUM frames {pf}")
+    check(lzf["python_decodes_native"] and lzf["native_decodes_python"]
+          and lzf["native_round_trip"] and pf["routes"] == [True] and pf["equal"]
+          and pf["frames"] == seq_frames, f"native {out['native']}")
+
+    # ---- 17l. utilities: memory statistics, the profiler, the timer
+    big_bytes = 64 << 20
+    live0 = mem.live_array_stats().get(str(torch.empty(0, device=dev).device), {"bytes": 0})
+    ds0 = mem.device_memory_stats() if on_card else None
+    big = torch.empty(big_bytes, dtype=torch.uint8, device=dev)
+    live1 = mem.live_array_stats()[str(big.device)]
+    ds1 = mem.device_memory_stats() if on_card else None
+    prof_dir = os.path.join(out_dir, "prof")
+    with mem.trace(prof_dir):
+        with mem.annotate("phase17_annotated"):
+            x = torch.randn((1024, 1024), device=dev)
+            (x @ x).sum().item()
+    traces = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs
+              if f.endswith(".trace.json.gz")]
+    events = []
+    if traces:
+        with gzip.open(traces[0], "rt") as f:
+            events = json.load(f)["traceEvents"]
+    snap = os.path.join(out_dir, "memory.snapshot")
+    mem.save_device_memory_profile(snap)
+    t = tmr.Timer()
+    (x @ x).sum()
+    util = {"live_growth": live1["bytes"] - live0["bytes"],
+            "allocator_growth": None if ds0 is None else ds1["bytes_in_use"] - ds0["bytes_in_use"],
+            "bytes_limit": None if ds1 is None else ds1["bytes_limit"],
+            "traces": len(traces), "annotated": any(ev.get("name") == "phase17_annotated"
+                                                    for ev in events),
+            "device_events": sum(1 for ev in events if ev.get("cat") == "kernel"),
+            "snapshot_bytes": os.path.getsize(snap), "timer_ms": t.stop()}
+    del big, x
+    out["utils"] = util
+    say(f"utilities {util}")
+    check(util["live_growth"] >= big_bytes and (util["allocator_growth"] is None
+                                                or util["allocator_growth"] == big_bytes)
+          and (not on_card or util["bytes_limit"] > big_bytes) and util["traces"] == 1
+          and util["annotated"] and util["snapshot_bytes"] > 0, f"utilities {util}")
+
+    # ---- 17m. the viewer, where its optional packages are installed
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "msgpack", "zmq", "plotly")}
+    say(f"viewer packages installed: {have}")
+    view = {}
+    if have["matplotlib"]:
+        from open3d_tpu_torch.visualization import draw as vis
+
+        png, ms = host_ms(lambda: vis.draw([cloud], output_path=os.path.join(out_dir, "c.png"),
+                                           max_points=20000), lambda: None)
+        view["draw"] = {"png_bytes": os.path.getsize(png), "ms": ms}
+    if have["msgpack"]:
+        from open3d_tpu_torch.visualization import rpc
+
+        buf = rpc.BufferConnection()
+        rpc.set_point_cloud(cloud, path="phase17/cloud", connection=buf)
+        _, body = rpc.unpack_request(buf.frames[0])
+        dv = body["data"]
+        view["rpc"] = {"frame_bytes": len(buf.frames[0]), "round_trip": exact(
+            rpc.decode_array(dv["vertices"]), host["positions"]) and all(
+            exact(rpc.decode_array(dv["vertex_attributes"][k]), host[k])
+            for k in ("normals", "colors"))}
+    out["viewer"] = {"installed": have, **view}
+    if view:
+        say(f"viewer {view}")
+    check(view.get("draw", {"png_bytes": 1001})["png_bytes"] > 1000
+          and view.get("rpc", {"round_trip": True})["round_trip"], f"viewer {view}")
+
+    launches = launch_counts()
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t_start
+    say(f"launches on this path {launches}")
+    check(all(v == 0 for v in launches.values()), f"no kernel of csrc/ on this path {launches}")
+    return out
+
+
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
@@ -3371,6 +3961,13 @@ def main(argv=None) -> int:
         + json.dumps({k: [disk["stage_ms"].get(k), scene["stage_ms"].get(k)]
                       for k in scene["stage_ms"]}) + f" | card {smi}")
 
+    # ---- 17. ml/ops.py at its published models' widths, every IO format,
+    # the native library, the utilities and the viewer, on one frame of the
+    # synthetic room (no kernel of csrc/ on this path)
+    with tempfile.TemporaryDirectory() as out_dir:
+        mlio = ml_io_phase(dev, intr, smi, zero_counts, launch_counts, out_dir)
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "integrate_blocks_v2", "route": "cuda",
@@ -3386,7 +3983,8 @@ def main(argv=None) -> int:
                                      disk["slam_command"]["launches"]["integrate_blocks_v2"],
                                  "post-processing (phase 15)":
                                      post["launches"]["integrate_blocks_v2"],
-                                 PHASE16: toolbox["launches"]["integrate_blocks_v2"]},
+                                 PHASE16: toolbox["launches"]["integrate_blocks_v2"],
+                                 PHASE17: mlio["launches"]["integrate_blocks_v2"]},
             "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
             "parity_by_path": {"slam_step (phase 3)": k1_par,
                                "run_system (phase 13)": scene["k1"]},
@@ -3404,7 +4002,8 @@ def main(argv=None) -> int:
                                  "slam command (phase 14)":
                                      disk["slam_command"]["launches"]["march_tiles"],
                                  "post-processing (phase 15)": post["launches"]["march_tiles"],
-                                 PHASE16: toolbox["launches"]["march_tiles"]},
+                                 PHASE16: toolbox["launches"]["march_tiles"],
+                                 PHASE17: mlio["launches"]["march_tiles"]},
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
             "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
@@ -3422,7 +4021,8 @@ def main(argv=None) -> int:
                                  "make_fragments_sharded (phase 14)":
                                      disk["launches"]["fuse_blocks"],
                                  "post-processing (phase 15)": post["launches"]["fuse_blocks"],
-                                 PHASE16: toolbox["launches"]["fuse_blocks"]},
+                                 PHASE16: toolbox["launches"]["fuse_blocks"],
+                                 PHASE17: mlio["launches"]["fuse_blocks"]},
             "parity_by_path": {"make_fragments (phase 9)": {k: k3_out[k] for k in
                                                             ("colour", "no_colour")},
                                "make_fragments_sharded (phase 14)": disk["k3"]},
@@ -3445,7 +4045,8 @@ def main(argv=None) -> int:
                                      launches_v1["integrate_blocks_v1"],
                                  "post-processing (phase 15)":
                                      post["launches"]["integrate_blocks_v1"],
-                                 PHASE16: toolbox["launches"]["integrate_blocks_v1"]},
+                                 PHASE16: toolbox["launches"]["integrate_blocks_v1"],
+                                 PHASE17: mlio["launches"]["integrate_blocks_v1"]},
             "max_abs_err": k4_par["max_abs_err"],
             "ms": k4_ms, "kernel_ms": k4_ms, "cold_ms": k4_cold_ms, "plain_ms": k4_plain_ms,
             "spread_ms": k4_spread, "cold_spread_ms": k4_cold_spread, "times": MEDIAN_TIMES,
@@ -3457,7 +4058,8 @@ def main(argv=None) -> int:
     for k in probe_kernels:
         k["launches_by_path"] = {"probes (phase 10)": k["launches"],
                                  "post-processing (phase 15)": post["launches"][k["name"]],
-                                 PHASE16: toolbox["launches"][k["name"]]}
+                                 PHASE16: toolbox["launches"][k["name"]],
+                                 PHASE17: mlio["launches"][k["name"]]}
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
                                    "slice": slice_res, "v1_slice": v1_res,
                                    "fragment": fr["fragment"],
@@ -3466,7 +4068,7 @@ def main(argv=None) -> int:
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
                                    "registration": registration, "scene": scene,
                                    "disk": disk, "post": post, "toolbox": toolbox,
-                                   "card": smi}))
+                                   "ml_io": mlio, "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

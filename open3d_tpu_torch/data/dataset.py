@@ -7,9 +7,10 @@ RGB-D sequence loaders and the synthetic demo data.
   extracted directory, else a cached archive (MD5-checked), else tries the
   URL and, offline, raises with where to put the data.
 - `RGBDSequence`: file lists, intrinsic and depth scale; `read_frame(i)`
-  decodes one frame with the port's PNG reader (io/image_io.py), and
-  `iter_frames` reads ahead on a thread pool (the JAX package uses its
-  native prefetcher and PIL) and yields the same frames in the same order.
+  decodes one frame with the port's image reader (io/image_io.py), and
+  `iter_frames` yields the same frames in the same order, the files read
+  ahead by the native prefetcher (native.FilePrefetcher), as the JAX
+  package reads them.
 - `load_tum_sequence`, `write_tum_sequence`, `load_redwood_sequence`: the
   TUM RGB-D and Redwood layouts, as the JAX package reads and writes them.
 - `synthetic_rgbd_sequence` and `demo_icp_point_clouds`: the analytic scene
@@ -21,7 +22,6 @@ RGB-D sequence loaders and the synthetic demo data.
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import hashlib
 import os
@@ -126,19 +126,20 @@ class RGBDSequence:
         return depth, color
 
     def iter_frames(self, n_threads: int = 4, depth_ahead: int = 8):
-        """The frames in order, `read_frame` running on `n_threads` threads
-        up to `depth_ahead` frames ahead of the consumer (zlib's inflate
-        and numpy release the interpreter lock), so decoding overlaps the
-        caller's work on the card."""
-        n = len(self)
-        with concurrent.futures.ThreadPoolExecutor(max_workers=n_threads) as pool:
-            ahead = [pool.submit(self.read_frame, i) for i in range(min(depth_ahead, n))]
-            for i in range(n):
-                frame = ahead[i].result()
-                ahead[i] = None
-                if i + depth_ahead < n:
-                    ahead.append(pool.submit(self.read_frame, i + depth_ahead))
-                yield frame
+        """The frames in order, as `read_frame` gives them. The native
+        prefetcher's `n_threads` threads read the depth and colour files up
+        to `depth_ahead` files ahead of the consumer, so disk reads overlap
+        the caller's work on the card; each frame is decoded when it is
+        taken."""
+        from open3d_tpu_torch.io.image_io import decode_image
+        from open3d_tpu_torch.native import FilePrefetcher
+
+        order = [p for pair in zip(self.depth_paths, self.color_paths) for p in pair]
+        with FilePrefetcher(order, n_threads=n_threads, depth=depth_ahead) as pf:
+            for i in range(len(self)):
+                depth = decode_image(pf.get(2 * i), self.depth_paths[i]).astype(np.float32)
+                color = decode_image(pf.get(2 * i + 1), self.color_paths[i]).astype(np.float32)
+                yield depth / self.depth_scale, color / 255.0
 
 
 def load_tum_sequence(root: str, max_depth_diff: float = 0.02) -> RGBDSequence:

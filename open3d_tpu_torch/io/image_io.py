@@ -1,22 +1,28 @@
-"""Image IO (port of open3d_tpu/io/image_io.py): PNG colour images and the
+"""Image IO (port of open3d_tpu/io/image_io.py): colour images and the
 16-bit depth PNGs of the TUM and Redwood datasets.
 
-The JAX package reads and writes through PIL. The port needs no imaging
-library: it parses the PNG chunks (IHDR, PLTE, IDAT), inflates the image
-data with zlib and undoes the row filters in numpy, and writes PNGs the
-same way. What it returns is what the JAX package's PIL path returns:
+The JAX package reads and writes through PIL. The port reads and writes
+PNG without an imaging library: it parses the PNG chunks (IHDR, PLTE,
+IDAT), inflates the image data with zlib and undoes the row filters in
+numpy. Every other format (JPEG among them) it reads through PIL, imported
+at call time, as the JAX package does; without PIL that raises
+ImportError. What it returns is what the JAX package's PIL path returns:
 
 - uint16 (H, W) for 16-bit greyscale (depth);
-- uint8 (H, W) for 8-bit greyscale;
+- uint8 (H, W) for 8-bit greyscale, and for 2- and 4-bit greyscale
+  scaled to 0-255 (PIL's "L");
 - uint8 (H, W, 3) for everything else: RGB as it is, a palette expanded,
-  greyscale+alpha as grey in three channels, alpha dropped (PIL's
-  `convert("RGB")`), 16-bit samples of colour types cut to their high byte
-  as PIL does.
+  1-bit greyscale as 0 or 255 (PIL's "1"), greyscale+alpha as grey in
+  three channels, alpha dropped (PIL's `convert("RGB")`), 16-bit samples
+  of colour types cut to their high byte as PIL does.
 
-Bit depths 8 and 16 are read, in every colour type (0 grey, 2 RGB,
-3 palette, 4 grey+alpha, 6 RGBA). Interlaced (Adam7) PNGs, bit depths
-below 8 and other formats than PNG (JPEG among them) raise
-NotImplementedError naming what they are.
+Every colour type (0 grey, 2 RGB, 3 palette, 4 grey+alpha, 6 RGBA) at
+every bit depth the PNG standard allows it (1, 2, 4, 8 and 16 for grey,
+1-8 for a palette, 8 and 16 for the rest) is read, interlaced (Adam7) or
+not. Samples below 8 bits are unpacked after the filters are undone, with
+one byte a pixel for the filters, as the standard says. An Adam7 image is
+seven reduced images, each filtered and decoded on its own, then put in
+place by strided assignment.
 
 Undoing the filters. Average and Paeth predict a byte from its left
 neighbour, which is itself reconstructed, so a row cannot be undone in one
@@ -32,6 +38,7 @@ unfiltered (what `write_image` writes) skips the sweep.
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -109,10 +116,50 @@ def _unfilter(scan: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return _skewed(rec, h, w).astype(np.uint8)
 
 
+# bit depths the PNG standard allows each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _samples(raw: np.ndarray, h: int, w: int, ch: int, depth: int) -> np.ndarray:
+    """The (h, w, ch) sample values (uint16 for 16 bits, else uint8, not
+    scaled) of one image's filtered scanlines `raw`, h * (1 + row bytes)."""
+    row = (w * ch * depth + 7) // 8
+    if raw.size != h * (1 + row):
+        raise ValueError(f"PNG data holds {raw.size} bytes, not {h * (1 + row)}")
+    if depth >= 8:
+        bpp = ch * depth // 8
+        px = _unfilter(raw.reshape(h, 1 + row), h, w, bpp)
+        if depth == 16:
+            px = px.reshape(h, w, ch, 2)
+            return (px[..., 0].astype(np.uint16) << 8) | px[..., 1]
+        return px
+    # below 8 bits (one sample a pixel): the filters run on bytes, one a step
+    packed = _unfilter(raw.reshape(h, 1 + row), h, row, 1)[..., 0]
+    per = 8 // depth
+    shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)  # first sample highest
+    vals = (packed[..., None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, row * per)[:, :w, None]
+
+
+def _adam7(raw: np.ndarray, h: int, w: int, ch: int, depth: int) -> np.ndarray:
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no scanlines, not even filter bytes
+        n = ph * (1 + (pw * ch * depth + 7) // 8)
+        out[y0::dy, x0::dx] = _samples(raw[pos:pos + n], ph, pw, ch, depth)
+        pos += n
+    if pos != raw.size:
+        raise ValueError(f"interlaced PNG data holds {raw.size} bytes, not {pos}")
+    return out
+
+
 def _decode_png(data: bytes, what: str = "image") -> np.ndarray:
-    if data[:8] != _SIGNATURE:
-        kind = "JPEG" if data[:3] == b"\xff\xd8\xff" else "this format"
-        raise NotImplementedError(f"{what}: {kind} is not decoded; only PNG is")
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -124,25 +171,26 @@ def _decode_png(data: bytes, what: str = "image") -> np.ndarray:
     if header is None:
         raise ValueError(f"{what}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{what}: interlaced (Adam7) PNG is not decoded yet")
     if ctype not in _CHANNELS:
         raise ValueError(f"{what}: PNG colour type {ctype} does not exist")
-    if depth not in (8, 16):
-        raise NotImplementedError(f"{what}: PNG bit depth {depth} is not decoded; 8 and 16 are")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{what}: PNG bit depth {depth} does not exist for colour type {ctype}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{what}: PNG interlace method {interlace} does not exist")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"{what}: PNG data holds {raw.size} bytes, not {h * (1 + w * bpp)}")
-    px = _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
+    try:
+        px = (_adam7 if interlace else _samples)(raw, h, w, ch, depth)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
     if depth == 16:
-        px = px.reshape(h, w, ch, 2)
         if ctype == 0:
-            return (px[..., 0, 0].astype(np.uint16) << 8) | px[..., 0, 1]
-        px = px[..., 0]  # colour types: the high byte, as PIL keeps
+            return px[..., 0]
+        px = (px >> 8).astype(np.uint8)  # colour types: the high byte, as PIL keeps
     if ctype == 0:
-        return px[..., 0].copy()
+        if depth == 1:
+            return np.repeat(px * np.uint8(255), 3, axis=-1)  # PIL's "1", as RGB
+        return px[..., 0] * np.uint8(255 // ((1 << depth) - 1))
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{what}: palette PNG without PLTE")
@@ -152,6 +200,29 @@ def _decode_png(data: bytes, what: str = "image") -> np.ndarray:
     if ctype == 4:
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _decode_pil(data: bytes, what: str) -> np.ndarray:
+    """Any format PIL reads, returned as the JAX package's read_image does."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{what}: this file is not a PNG, and reading it needs PIL "
+                          "(Pillow), which is not installed") from e
+    img = Image.open(io.BytesIO(data))
+    if img.mode in ("I", "I;16", "I;16B"):
+        return np.asarray(img, dtype=np.uint16)
+    if img.mode == "L":
+        return np.asarray(img, dtype=np.uint8)
+    return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
+def decode_image(data: bytes, what: str = "image") -> np.ndarray:
+    """An encoded image's pixels, as `read_image` returns a file's: PNG by
+    the port's decoder, any other format through PIL."""
+    if data[:8] == _SIGNATURE:
+        return _decode_png(data, what)
+    return _decode_pil(data, what)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -181,7 +252,7 @@ def read_image(path: str) -> np.ndarray:
     """uint8 (H, W, 3) colour or uint16/uint8 (H, W) greyscale/depth."""
     with open(path, "rb") as f:
         data = f.read()
-    return _decode_png(data, path)
+    return decode_image(data, path)
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -4,12 +4,17 @@
     python -m open3d_tpu_torch.tools.cli info PATH
     python -m open3d_tpu_torch.tools.cli reconstruct DIR [--output OUT] [--config YML]
     python -m open3d_tpu_torch.tools.cli slam DIR [--output OUT] [--voxel-size V] [--frames N]
+    python -m open3d_tpu_torch.tools.cli draw PATH [--output PNG] [--rpc ADDRESS]
 
 Subcommands:
   convert       point-cloud / mesh format conversion (ConvertPointCloud.cpp)
   info          print geometry file statistics (ViewGeometry.cpp analog)
   reconstruct   the offline reconstruction system on a TUM or Redwood directory
   slam          dense SLAM over such a directory, writes trajectory.log + mesh.ply
+  draw          render a point cloud to a PNG (matplotlib), or send it to an
+                RPC viewer (msgpack over ZeroMQ)
+
+`bench` (the JAX package's benchmark suite) has no counterpart yet.
 
 Every subcommand takes `--device` (default: the card; `--device cpu` runs
 the kernels' plain versions on the CPU). On several cards, one process a
@@ -136,6 +141,21 @@ def cmd_slam(args):
     print(f"wrote {args.output}/trajectory.log and mesh.ply")
 
 
+def cmd_draw(args):
+    from open3d_tpu_torch.io import read_point_cloud
+    from open3d_tpu_torch.visualization import draw as vis
+
+    pcd = read_point_cloud(args.path, device=args.device)
+    if args.rpc:
+        ev = vis.ExternalVisualizer(args.rpc)
+        ev.set(pcd, path=os.path.basename(args.path))
+        print(f"sent to {args.rpc}")
+    else:
+        out = args.output or (os.path.splitext(args.path)[0] + ".png")
+        vis.draw([pcd], output_path=out)
+        print(f"wrote {out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="open3d-tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -167,6 +187,12 @@ def main(argv=None):
     c.add_argument("--voxel-size", type=float, default=3.0 / 512)
     c.add_argument("--frames", type=int, default=0)
     c.set_defaults(fn=cmd_slam)
+
+    c = sub.add_parser("draw", parents=[common], help="render to PNG or send to RPC viewer")
+    c.add_argument("path")
+    c.add_argument("--output", default="")
+    c.add_argument("--rpc", default="")
+    c.set_defaults(fn=cmd_draw)
 
     args = p.parse_args(argv)
     args.fn(args)

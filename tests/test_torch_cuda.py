@@ -782,3 +782,69 @@ def test_carve_on_the_card_matches_a_cpu_copy(cuda):
     a, b = out["cuda"], out["cpu"]
     assert torch.equal(a.coords.cpu(), b.coords) and int(a.num_voxels) == int(b.num_voxels)
     assert 0 < int(b.num_voxels) < b.coords.shape[0]
+
+
+def _cloud(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((n, 3), generator=g) * 2 - 1
+
+
+def test_continuous_conv_on_the_card_matches_a_cpu_copy(cuda):
+    """The re-ordered continuous_conv and its gradients: the neighbour sets
+    agree (the inputs hold no distance tie), the sums by filter cell are the
+    same sorted sums, and the contraction is one float32 product on each
+    device, so the card and the CPU agree within 1e-5 of the largest."""
+    from open3d_tpu_torch.ml import ops
+
+    g = torch.Generator().manual_seed(3)
+    feat, w = torch.randn((2048, 8), generator=g), torch.randn((4, 4, 4, 8, 16), generator=g)
+    pts, q = _cloud(2048, 4), _cloud(512, 5)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        f, ww = feat.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        y = ops.continuous_conv(f, pts.to(dev), q.to(dev), ww, 0.3, max_nn=32)
+        (y**2).sum().backward()
+        out[dev.type] = [t.detach().cpu() for t in (y, f.grad, ww.grad)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-5
+
+
+def test_sparse_conv_on_the_card_matches_a_cpu_copy(cuda):
+    from open3d_tpu_torch.ml import ops
+
+    g = torch.Generator().manual_seed(6)
+    coords = torch.unique(torch.randint(-20, 20, (4000, 3), generator=g, dtype=torch.int32), dim=0)
+    feat, w = torch.randn((coords.shape[0], 16), generator=g), torch.randn((3, 3, 3, 16, 16),
+                                                                            generator=g)
+    a = ops.sparse_conv(feat.to(cuda), coords.to(cuda), w.to(cuda)).cpu()
+    b = ops.sparse_conv(feat, coords, w)
+    assert float((a - b).abs().max() / b.abs().max()) < 1e-5
+
+
+def test_nms_on_the_card_matches_a_cpu_copy(cuda):
+    """The keep mask from N dependent steps on the card equals the CPU's;
+    the IoUs agree within 1e-5 (the corners' sin and cos round per device)."""
+    from open3d_tpu_torch.ml import ops
+
+    g = torch.Generator().manual_seed(7)
+    boxes = torch.cat([torch.rand((300, 2), generator=g) * 10, torch.rand((300, 2), generator=g) + 0.5,
+                       torch.rand((300, 1), generator=g) * 6.28], 1)
+    scores = torch.rand(300, generator=g)
+    iou_a, iou_b = ops.iou_bev(boxes.to(cuda), boxes.to(cuda)).cpu(), ops.iou_bev(boxes, boxes)
+    assert float((iou_a - iou_b).abs().max()) < 1e-5
+    keep_a = ops.nms(boxes.to(cuda), scores.to(cuda), 0.3).cpu()
+    keep_b = ops.nms(boxes, scores, 0.3)
+    assert 0 < int(keep_b.sum()) < 300 and torch.equal(keep_a, keep_b)
+
+
+def test_device_memory_stats_on_the_card(cuda):
+    from open3d_tpu_torch.utils import memory as mem
+
+    before = mem.device_memory_stats()
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    after = mem.device_memory_stats()
+    assert after["bytes_in_use"] - before["bytes_in_use"] == 64 << 20
+    assert after["peak_bytes_in_use"] >= after["bytes_in_use"] and after["bytes_limit"] > 1 << 30
+    assert mem.live_array_stats()[str(x.device)]["bytes"] >= 64 << 20
+    del x

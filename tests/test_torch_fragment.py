@@ -97,8 +97,9 @@ def test_extract_point_cloud_matches_jax(grid_jax):
 
 
 def test_point_cloud_ply_and_carry(grid_jax, tmp_path):
-    """PLY bytes equal JAX's for the same cloud; the cloud carries JAX ->
-    numpy -> port -> numpy bit-identically; the port reads its PLY back."""
+    """PLY and PCD bytes equal JAX's for the same cloud; the cloud carries
+    JAX -> numpy -> port -> numpy bit-identically; the port reads its PLY
+    back."""
     pj = jvbg.extract_point_cloud(grid_jax, point_capacity=32768, weight_threshold=2.0)
     arrays = {"positions": np.asarray(pj.positions), "mask": np.asarray(pj.mask)}
     arrays.update({k: np.asarray(v) for k, v in pj.attrs.items()})
@@ -116,8 +117,11 @@ def test_point_cloud_ply_and_carry(grid_jax, tmp_path):
     rd = tio.read_point_cloud(b, capacity=40000, device="cpu")
     assert rd.capacity == 40000 and int(rd.count()) == int(pj.count())
     np.testing.assert_array_equal(rd.to_numpy()["positions"], pt.to_numpy()["positions"])
-    with pytest.raises(NotImplementedError):
-        tio.write_point_cloud(str(tmp_path / "x.pcd"), pt)
+    a, b = str(tmp_path / "jax.pcd"), str(tmp_path / "port.pcd")
+    jwrite_point_cloud(a, pj)
+    tio.write_point_cloud(b, pt)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
 
 
 def test_point_cloud_container():

@@ -12,10 +12,15 @@ Bars, all exact:
 - PIL reads the port's write_image output bit for bit;
 - read_depth / write_depth round trips equal the JAX package's, clipping
   included;
-- interlaced PNGs, bit depths below 8 and JPEGs raise NotImplementedError.
+- interlaced (Adam7) PNGs and bit depths 1, 2 and 4 (grey and palette),
+  built here and written by PIL, and JPEGs PIL writes, read as the JAX
+  package reads them;
+- a bit depth or interlace method the standard does not have raises
+  ValueError, and a JPEG without PIL raises ImportError naming it.
 """
 
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -80,29 +85,53 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _encode(img: np.ndarray, ctype: int, depth: int, ftypes, palette=None,
-            interlace: int = 0) -> bytes:
-    """A PNG with the given filter type per row (the spec's filters applied
-    to the raw bytes, row by row)."""
-    h, w = img.shape[:2]
+def _pack(img: np.ndarray, depth: int):
+    """The (h, row bytes) raw bytes of an (h, w, ch) image and the bytes a
+    pixel the filters step by (samples below 8 bits packed, highest first)."""
+    h, w, ch = img.shape
     if depth == 16:
-        raw = img.astype(">u2").view(np.uint8).reshape(h, -1).astype(np.int32)
-    else:
-        raw = img.astype(np.uint8).reshape(h, -1).astype(np.int32)
-    bpp = raw.shape[1] // w
+        return img.astype(">u2").view(np.uint8).reshape(h, -1).astype(np.int32), 2 * ch
+    if depth == 8:
+        return img.astype(np.uint8).reshape(h, -1).astype(np.int32), ch
+    per = 8 // depth
+    v = np.concatenate([img[..., 0], np.zeros((h, -w % per), img.dtype)], 1).astype(np.int32)
+    shifts = 8 - depth * (1 + np.arange(per))
+    return (v.reshape(h, -1, per) << shifts).sum(-1), 1
+
+
+def _filtered(raw: np.ndarray, bpp: int, ftypes) -> bytes:
+    """Scanlines with filter type ftypes[r % len] on row r (the spec's
+    filters applied to the raw bytes, row by row)."""
     rows = []
-    for r in range(h):
+    for r in range(raw.shape[0]):
         x = raw[r]
         up = raw[r - 1] if r else np.zeros_like(x)
         left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
         pred = {0: 0, 1: left, 2: up, 3: (left + up) >> 1, 4: _paeth(left, up, upleft)}
-        f = ftypes[r]
+        f = ftypes[r % len(ftypes)]
         rows.append(bytes([f]) + ((x - pred[f]) % 256).astype(np.uint8).tobytes())
+    return b"".join(rows)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _encode(img: np.ndarray, ctype: int, depth: int, ftypes, palette=None,
+            interlace: int = 0) -> bytes:
+    """A PNG of `img` (h, w, ch) with the given filter type per row; with
+    interlace=1 the seven Adam7 passes, each filtered on its own."""
+    h, w = img.shape[:2]
+    if interlace == 1:
+        passes = [img[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7 if x0 < w and y0 < h]
+    else:
+        passes = [img]
+    data = b"".join(_filtered(*_pack(p, depth), ftypes) for p in passes)
     chunks = [(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))]
     if palette is not None:
         chunks.append((b"PLTE", palette.astype(np.uint8).tobytes()))
-    chunks += [(b"IDAT", zlib.compress(b"".join(rows))), (b"IEND", b"")]
+    chunks += [(b"IDAT", zlib.compress(data)), (b"IEND", b"")]
     return tio._SIGNATURE + b"".join(tio._chunk(k, b) for k, b in chunks)
 
 
@@ -163,17 +192,63 @@ def test_depth_round_trips_equal_the_reference(tmp_path):
         np.testing.assert_array_equal(tio.read_image(a), tio.read_image(b))
 
 
-def test_interlaced_low_bit_depth_and_jpeg_raise(tmp_path):
-    img = RNG.integers(0, 256, (8, 8, 1)).astype(np.uint8)
+def test_interlaced_low_bit_depth_and_jpeg_raise(tmp_path, monkeypatch):
+    """What the standard does not have raises ValueError; a JPEG without
+    PIL raises ImportError naming it."""
+    img = RNG.integers(0, 8, (8, 8, 1)).astype(np.uint8)
     p = tmp_path / "i.png"
-    p.write_bytes(_encode(img, 0, 8, [0] * 8, interlace=1))
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    p.write_bytes(_encode(img, 0, 8, [0], interlace=2))
+    with pytest.raises(ValueError, match="interlace method 2"):
         tio.read_image(str(p))
-    Image.fromarray(img[..., 0] > 127).save(str(tmp_path / "b.png"))  # 1-bit
-    with pytest.raises(NotImplementedError, match="bit depth 1"):
-        tio.read_image(str(tmp_path / "b.png"))
+    p.write_bytes(_encode(img, 2, 4, [0]))  # RGB has no 4-bit samples
+    with pytest.raises(ValueError, match="bit depth 4"):
+        tio.read_image(str(p))
+    p.write_bytes(_encode(img, 0, 8, [0], interlace=1)[:-40] + _encode(img, 0, 8, [0])[-12:])
+    with pytest.raises(ValueError):  # truncated image data
+        tio.read_image(str(p))
     Image.fromarray(RNG.integers(0, 256, (8, 8, 3)).astype(np.uint8)).save(str(tmp_path / "c.jpg"))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="PIL"):
         tio.read_image(str(tmp_path / "c.jpg"))
     with pytest.raises(ValueError):
         tio.write_image(str(tmp_path / "f.png"), np.zeros((4, 4), np.float32))
+
+
+LOW_AND_ALL = [(0, 1, 1), (0, 2, 1), (0, 4, 1), (3, 1, 1), (3, 2, 1), (3, 4, 1)] + FORMATS
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["flat", "adam7"])
+@pytest.mark.parametrize("fmt", LOW_AND_ALL, ids=lambda f: f"ct{f[0]}-{f[1]}bit")
+def test_decodes_low_bit_depths_and_adam7(tmp_path, fmt, interlace):
+    """Every colour type and bit depth, flat and interlaced, at a size whose
+    passes are all partial (11 x 13), rows of every filter type."""
+    ctype, depth, ch = fmt
+    img = RNG.integers(0, 1 << depth, (11, 13, ch)).astype(np.uint16 if depth == 16 else np.uint8)
+    palette = RNG.integers(0, 256, (1 << min(depth, 8), 3)) if ctype == 3 else None
+    p = tmp_path / "a.png"
+    p.write_bytes(_encode(img, ctype, depth, [0, 1, 2, 3, 4], palette, interlace))
+    want = jio.read_image(str(p))
+    got = tio.read_image(str(p))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_reads_low_bit_depths_pil_writes(tmp_path, bits):
+    grey = Image.fromarray(_smooth(40, 52, 1) > 100)  # mode "1": a 1-bit grey PNG
+    pal = Image.fromarray(_smooth(40, 52, 3)).quantize(1 << bits)
+    for name, img, kw in (("g", grey, {}), ("p", pal, {"bits": bits})):
+        p = str(tmp_path / f"{name}.png")
+        img.save(p, **kw)
+        assert tio._chunks(open(p, "rb").read()).__next__()[1][8] == (1 if name == "g" else bits)
+        np.testing.assert_array_equal(tio.read_image(p), jio.read_image(p))
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L"])
+def test_reads_jpeg_as_the_reference(tmp_path, mode):
+    img = _smooth(40, 52, 3 if mode == "RGB" else 1)
+    p = str(tmp_path / "c.jpg")
+    Image.fromarray(img).save(p, quality=90)
+    got, want = tio.read_image(p), jio.read_image(p)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

@@ -301,11 +301,26 @@ def test_mesh_ply_reads_colours_and_normals(tmp_path):
 
 @pytest.mark.parametrize("ext", [".stl", ".off", ".gltf", ".glb"])
 def test_queued_mesh_formats_raise(ext, tmp_path):
-    _, mt = _pair(7)
-    with pytest.raises(NotImplementedError):
-        tio.write_triangle_mesh(str(tmp_path / f"m{ext}"), mt)
-    with pytest.raises(NotImplementedError):
-        tio.read_triangle_mesh(str(tmp_path / f"m{ext}"), device="cpu")
+    """The formats once queued write the JAX package's bytes and read in
+    either package; a file not of its format and an unknown extension
+    raise ValueError."""
+    mj, mt = _pair(7)
+    a, b = str(tmp_path / f"port{ext}"), str(tmp_path / f"jax{ext}")
+    tio.write_triangle_mesh(a, mt)
+    jio.write_triangle_mesh(b, mj)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    vt, tt = tio.read_triangle_mesh(a, device="cpu").compact()
+    if ext == ".gltf":  # both write GLB there, which the JAX package reads only as .glb
+        a = str(tmp_path / "port_as.glb")
+        tio.write_triangle_mesh(a, mt)
+    vj, tj = jio.read_triangle_mesh(a).compact()
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_array_equal(vt, vj)
+    bad = tmp_path / f"bad{ext}"
+    bad.write_bytes(b"solid x" if ext == ".stl" else b"{}" if ext == ".gltf" else b"nothing")
+    with pytest.raises(ValueError):
+        tio.read_triangle_mesh(str(bad), device="cpu")
     with pytest.raises(ValueError):
         tio.read_triangle_mesh(str(tmp_path / "m.xyz"), device="cpu")
 
