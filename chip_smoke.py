@@ -7,8 +7,9 @@ registration path (ICP, FPFH, RANSAC, FGR), the whole offline system
 a one-rank process group, with the distributed solves and the `slam`
 command, the post-processing of the scene (SLAC, Poisson, the colour
 map, segmentation, bounding volumes), ray casting, the mesh toolbox
-and voxel grids on the scene's meshes, and the 3D ML ops, the file
-formats, the native library and the utilities on one frame.
+and voxel grids on the scene's meshes, the 3D ML ops, the file
+formats, the native library and the utilities on one frame, and the
+benchmark suite with its command.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
@@ -153,7 +154,18 @@ Phases:
      point format and a marched mesh of the room in every mesh format,
      read back onto the card; native LZF against the Python codec both
      ways, iter_frames on the native prefetcher; the memory statistics,
-     the profiler trace and the viewer.
+     the profiler trace and the viewer;
+ 18. the benchmark suite, open3d_tpu_torch.bench.main(), in this process
+     at its full configuration (640x480, the 8-frame span-0.8 orbit, 40 960
+     blocks), counted like phase 5: its JSON line gated on bench.py's keys,
+     finite positive rates, the raycast accuracy keys (median under a
+     voxel, in-range misses under 0.08), icp_band_shortfall against phase
+     12's band reading, and K1 and K2 launched (no other kernel); the
+     median CUDA-event time of each call the sections make, and the SLAM
+     run's pose against the truth step by step (gated on the first pass's
+     frames 0-3), logged beside it; then `python -m
+     open3d_tpu_torch.tools.cli bench` under BENCH_SMALL=1 in a process of
+     its own, gated on its exit and its one line's keys.
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
@@ -167,6 +179,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import math
 import os
 import re
 import shutil
@@ -249,6 +262,7 @@ FPFH_CAPACITY = 16384
 MEDIAN_TIMES = "the median of 5 readings, each a mean over 20 launches; spread = largest - smallest"
 PHASE16 = "ray casting and mesh toolbox (phase 16)"
 PHASE17 = "ml, IO, native and utilities (phase 17)"
+PHASE18 = "bench (phase 18)"
 
 
 def log(msg: str) -> None:
@@ -273,6 +287,28 @@ def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reference_bench_keys(path: str | None = None):
+    """(the JSON line's keys, extra's keys) as the JAX package's bench.py
+    prints them, read from its dict literals (main's two, and those of
+    bench_icp and bench_raycast that main spreads into extra) without
+    importing it."""
+    import ast
+
+    path = path or os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench.py")
+    with open(path) as f:
+        fns = {n.name: n for n in ast.parse(f.read()).body if isinstance(n, ast.FunctionDef)}
+
+    def literal_keys(fn):
+        return [[k.value for k in d.keys if k is not None]
+                for d in ast.walk(fns[fn]) if isinstance(d, ast.Dict)]
+
+    main = literal_keys("main")
+    top = next(k for k in main if "metric" in k)
+    extra = next(k for k in main if "sync" in k)
+    spread = [k for fn in ("bench_icp", "bench_raycast") for d in literal_keys(fn) for k in d]
+    return set(top), set(extra) | set(spread)
 
 
 def event_ms(fn):
@@ -3502,6 +3538,147 @@ def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
     return out
 
 
+def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) -> dict:
+    """Phase 18: the benchmark suite, open3d_tpu_torch.bench.main(), in this
+    process at full width (its own configuration: 640x480, the 8-frame
+    span-0.8 orbit, 40 960 blocks), counted like phase 5; then the `bench`
+    command under BENCH_SMALL=1 in a process of its own. Gated: the JSON
+    line's keys are bench.py's; the rates, the times and value are finite
+    and > 0 (icp_estimation_ms and icp_other_ms, which the reference clamps
+    at 0, finite and >= 0); raycast_median_err_mm under one voxel (5.86 mm)
+    and raycast_miss_in_range under 0.08 (tests/test_pallas_raycast.py's
+    bars); icp_band_shortfall equal to phase 12's reading on the same pair;
+    K1 and K2 launched, K3, K4 and P1-P3 not; SLAM's pose on the first
+    pass's frames 0-3 within POSE_TOL of the truth (a reading beyond them,
+    ROADMAP.md §3 fault 3); the command exits 0 with one line of the same
+    keys. Each call the sections make is timed by a pair of CUDA events
+    around it, riding along in the suite's run, and logged as the median
+    by section beside the suite's own mean-per-call numbers."""
+    import torch
+
+    from open3d_tpu_torch import bench
+    from open3d_tpu_torch.core import lie, nns
+    from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.models import dense_slam
+    from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.pipelines import features, odometry
+    from open3d_tpu_torch.pipelines import global_registration as gr
+    from open3d_tpu_torch.pipelines import registration as reg
+
+    t_start = time.perf_counter()
+    sections = ("bench_integration", "bench_raycast", "bench_slam", "bench_icp",
+                "bench_odometry", "bench_fpfh_ransac")
+    calls = ((vbg_mod, "compute_unique_block_coordinates"), (vbg_mod, "integrate"),
+             (vbg_mod, "raycast"), (dense_slam, "slam_step"), (reg, "icp"),
+             (nns, "banded_one_nn"), (odometry, "rgbd_odometry_multi_scale"),
+             (pc_ops, "voxel_down_sample"), (pc_ops, "estimate_normals"),
+             (features, "compute_fpfh_feature"),
+             (gr, "registration_ransac_based_on_feature_matching"))
+    state = {"section": None}
+    events = {}  # (section, call) -> [(start, end)]
+    poses = []  # the pose after each step of the full-resolution SLAM run
+
+    def in_section(name, fn):
+        def run(*a, **kw):
+            state["section"] = (f"{name}(stride={kw.get('stride', 1)})" if name == "bench_slam"
+                                else name)
+            if name == "bench_integration":
+                state["extr"] = a[3]
+            return fn(*a, **kw)
+        return run
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            events.setdefault((state["section"], name), []).append((s, e))
+            if name == "slam_step" and state["section"] == "bench_slam(stride=1)":
+                poses.append(out.model.T_frame_to_world.clone())
+            return out
+        return run
+
+    saved = [(bench, n, getattr(bench, n)) for n in sections] + [(m, n, getattr(m, n))
+                                                                  for m, n in calls]
+    for n in sections:
+        setattr(bench, n, in_section(n, getattr(bench, n)))
+    for m, n in calls:
+        setattr(m, n, timed(n, getattr(m, n)))
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        out = bench.main(device=dev)
+        torch.cuda.synchronize()
+        suite_s = time.perf_counter() - t0
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    launches = launch_counts()
+    log(f"[18] bench.py's line on the card, {suite_s:.1f} s: {json.dumps(out)} | card {smi}")
+    log(f"[18] launches in the suite {launches}")
+    medians = {f"{s}/{c}": {"calls": len(v), "median_ms": statistics.median(
+        a.elapsed_time(b) for a, b in v)} for (s, c), v in events.items()}
+    for k, v in medians.items():
+        log(f"[18] per-call CUDA-event time {k}: median {v['median_ms']:.4f} ms over "
+            f"{v['calls']} calls | card {smi}")
+
+    # the full-resolution SLAM run's poses against the truth: a warm step on
+    # frame 0, then two passes over frames 0-7 (the model starts at I, the
+    # world is frame 0's camera)
+    extr = state["extr"]
+    n = extr.shape[0]
+    order = [0] + list(range(n)) * 2
+    errs = [lie.pose_distance(T, extr[0] @ lie.invert_se3(extr[i])) for T, i in zip(poses, order)]
+    rot, trans = [float(r) for r, _ in errs], [float(t) for _, t in errs]
+    log(f"[18] bench_slam (stride 1) pose against the truth, step by step (frames {order}): "
+        f"trans {trans}, rot {rot}")
+
+    top, extra_keys = reference_bench_keys()
+    ex = out["extra"]
+    check(set(out) == top and set(ex) == extra_keys,
+          f"bench line keys {sorted(out)} {sorted(ex)} = bench.py's {sorted(top)} {sorted(extra_keys)}")
+    positive = [out["value"]] + [ex[k] for k in ("raycast_fps", "slam_fps", "slam_half_res_track_fps",
+                                                 "icp_iters_per_s", "icp_nn_ms", "odometry_fps",
+                                                 "fpfh_ransac_s")]
+    check(all(math.isfinite(x) and x > 0 for x in positive), f"bench rates and times > 0 {out}")
+    check(all(math.isfinite(ex[k]) and ex[k] >= 0 for k in ("icp_estimation_ms", "icp_other_ms")),
+          f"bench ICP breakdown finite, >= 0 {ex}")
+    check(ex["raycast_median_err_mm"] < 3.0 / 512 * 1000 and ex["raycast_miss_in_range"] < 0.08,
+          f"bench raycast accuracy within a voxel, misses under 0.08 {ex}")
+    check(ex["icp_band_shortfall"] == band_shortfall,
+          f"bench icp_band_shortfall {ex['icp_band_shortfall']} = phase 12's {band_shortfall}")
+    check(launches["integrate_blocks_v2"] > 0 and launches["march_tiles"] > 0,
+          f"K1 and K2 launched in the suite {launches}")
+    check(all(c == 0 for k, c in launches.items() if k not in ("integrate_blocks_v2", "march_tiles")),
+          f"K3, K4 and P1-P3 not launched in the suite {launches}")
+    check(len(poses) == len(order) and max(trans[:5]) < POSE_TOL and max(rot[:5]) < POSE_TOL,
+          f"bench_slam pose within {POSE_TOL} of the truth on the first pass's frames 0-3 {trans} {rot}")
+
+    # the command, small configuration, in a process of its own
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_SMALL="1", PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "open3d_tpu_torch.tools.cli", "bench"]
+    if dev.type != "cuda":
+        cmd += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"[18] `bench` command, BENCH_SMALL=1, {cli_s:.1f} s, exit {proc.returncode}: {lines} "
+        f"| card {smi}")
+    check(proc.returncode == 0, f"the bench command exits 0: {proc.stderr[-2000:]}")
+    check(len(lines) == 1, f"the bench command prints one line: {lines}")
+    small = json.loads(lines[0])
+    check(set(small) == top and set(small["extra"]) == extra_keys,
+          f"the bench command's keys are bench.py's {small}")
+    phase_s = time.perf_counter() - t_start
+    log(f"[18] bench phase {phase_s:.1f} s")
+    return {"line": out, "small_line": small, "launches": launches, "per_call_ms": medians,
+            "slam_trans_err": trans, "slam_rot_err": rot, "suite_s": suite_s, "command_s": cli_s,
+            "phase_s": phase_s}
+
+
 def profile_steps(step, n: int, out_dir: str, step_ms: float, label: str = "slam_step") -> dict:
     """torch.profiler over `n` calls of step(i): the device's busy share, the
     kernels by device time and the host ops by their own time. Writes the
@@ -3968,6 +4145,12 @@ def main(argv=None) -> int:
         mlio = ml_io_phase(dev, intr, smi, zero_counts, launch_counts, out_dir)
     torch.cuda.empty_cache()
 
+    # ---- 18. the benchmark suite (open3d_tpu_torch.bench) at full width,
+    # then its command at the small configuration
+    bench = bench_phase(dev, smi, zero_counts, launch_counts,
+                        registration["shortfall"]["card"])
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "integrate_blocks_v2", "route": "cuda",
@@ -3984,7 +4167,8 @@ def main(argv=None) -> int:
                                  "post-processing (phase 15)":
                                      post["launches"]["integrate_blocks_v2"],
                                  PHASE16: toolbox["launches"]["integrate_blocks_v2"],
-                                 PHASE17: mlio["launches"]["integrate_blocks_v2"]},
+                                 PHASE17: mlio["launches"]["integrate_blocks_v2"],
+                                 PHASE18: bench["launches"]["integrate_blocks_v2"]},
             "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
             "parity_by_path": {"slam_step (phase 3)": k1_par,
                                "run_system (phase 13)": scene["k1"]},
@@ -4003,7 +4187,8 @@ def main(argv=None) -> int:
                                      disk["slam_command"]["launches"]["march_tiles"],
                                  "post-processing (phase 15)": post["launches"]["march_tiles"],
                                  PHASE16: toolbox["launches"]["march_tiles"],
-                                 PHASE17: mlio["launches"]["march_tiles"]},
+                                 PHASE17: mlio["launches"]["march_tiles"],
+                                 PHASE18: bench["launches"]["march_tiles"]},
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
             "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
@@ -4022,7 +4207,8 @@ def main(argv=None) -> int:
                                      disk["launches"]["fuse_blocks"],
                                  "post-processing (phase 15)": post["launches"]["fuse_blocks"],
                                  PHASE16: toolbox["launches"]["fuse_blocks"],
-                                 PHASE17: mlio["launches"]["fuse_blocks"]},
+                                 PHASE17: mlio["launches"]["fuse_blocks"],
+                                 PHASE18: bench["launches"]["fuse_blocks"]},
             "parity_by_path": {"make_fragments (phase 9)": {k: k3_out[k] for k in
                                                             ("colour", "no_colour")},
                                "make_fragments_sharded (phase 14)": disk["k3"]},
@@ -4046,7 +4232,8 @@ def main(argv=None) -> int:
                                  "post-processing (phase 15)":
                                      post["launches"]["integrate_blocks_v1"],
                                  PHASE16: toolbox["launches"]["integrate_blocks_v1"],
-                                 PHASE17: mlio["launches"]["integrate_blocks_v1"]},
+                                 PHASE17: mlio["launches"]["integrate_blocks_v1"],
+                                 PHASE18: bench["launches"]["integrate_blocks_v1"]},
             "max_abs_err": k4_par["max_abs_err"],
             "ms": k4_ms, "kernel_ms": k4_ms, "cold_ms": k4_cold_ms, "plain_ms": k4_plain_ms,
             "spread_ms": k4_spread, "cold_spread_ms": k4_cold_spread, "times": MEDIAN_TIMES,
@@ -4059,7 +4246,8 @@ def main(argv=None) -> int:
         k["launches_by_path"] = {"probes (phase 10)": k["launches"],
                                  "post-processing (phase 15)": post["launches"][k["name"]],
                                  PHASE16: toolbox["launches"][k["name"]],
-                                 PHASE17: mlio["launches"][k["name"]]}
+                                 PHASE17: mlio["launches"][k["name"]],
+                                 PHASE18: bench["launches"][k["name"]]}
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
                                    "slice": slice_res, "v1_slice": v1_res,
                                    "fragment": fr["fragment"],
@@ -4068,7 +4256,7 @@ def main(argv=None) -> int:
                                    "fragment_peak_bytes": fr["peak_bytes"], "surface": surface,
                                    "registration": registration, "scene": scene,
                                    "disk": disk, "post": post, "toolbox": toolbox,
-                                   "ml_io": mlio, "card": smi}))
+                                   "ml_io": mlio, "bench": bench, "card": smi}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,6 +4,7 @@
     python -m open3d_tpu_torch.tools.cli info PATH
     python -m open3d_tpu_torch.tools.cli reconstruct DIR [--output OUT] [--config YML]
     python -m open3d_tpu_torch.tools.cli slam DIR [--output OUT] [--voxel-size V] [--frames N]
+    python -m open3d_tpu_torch.tools.cli bench
     python -m open3d_tpu_torch.tools.cli draw PATH [--output PNG] [--rpc ADDRESS]
 
 Subcommands:
@@ -11,10 +12,10 @@ Subcommands:
   info          print geometry file statistics (ViewGeometry.cpp analog)
   reconstruct   the offline reconstruction system on a TUM or Redwood directory
   slam          dense SLAM over such a directory, writes trajectory.log + mesh.ply
+  bench         the benchmark suite (open3d_tpu_torch.bench): one JSON line
+                (BENCH_SMALL=1 for its small configuration)
   draw          render a point cloud to a PNG (matplotlib), or send it to an
                 RPC viewer (msgpack over ZeroMQ)
-
-`bench` (the JAX package's benchmark suite) has no counterpart yet.
 
 Every subcommand takes `--device` (default: the card; `--device cpu` runs
 the kernels' plain versions on the CPU). On several cards, one process a
@@ -141,6 +142,12 @@ def cmd_slam(args):
     print(f"wrote {args.output}/trajectory.log and mesh.ply")
 
 
+def cmd_bench(args):
+    from open3d_tpu_torch import bench
+
+    bench.main(device=args.device)
+
+
 def cmd_draw(args):
     from open3d_tpu_torch.io import read_point_cloud
     from open3d_tpu_torch.visualization import draw as vis
@@ -187,6 +194,9 @@ def main(argv=None):
     c.add_argument("--voxel-size", type=float, default=3.0 / 512)
     c.add_argument("--frames", type=int, default=0)
     c.set_defaults(fn=cmd_slam)
+
+    c = sub.add_parser("bench", parents=[common], help="run the benchmark suite")
+    c.set_defaults(fn=cmd_bench)
 
     c = sub.add_parser("draw", parents=[common], help="render to PNG or send to RPC viewer")
     c.add_argument("path")

@@ -507,15 +507,12 @@ def test_probe_wrappers_refuse_indices_out_of_range():
 # ---- public names and signatures against the reference ---------------------
 
 # Names the reference has and the port still lacks, each with the item of
-# ROADMAP.md §1 that queues it. Nothing else may be missing.
-QUEUED = {
-    # bench runs the benchmark suite; its port needs bench_gpu.py, which
-    # item 1 gives to the benchmark work, not to a port slice
-    "tools.cli": {"cmd_bench": 1},
-}
+# ROADMAP.md §1 that queues it. Nothing else may be missing: none is left.
+QUEUED = {}
 # The port's modules with no module at the same path in the reference: the
-# numpy interchange, and the kernel layer that replaces ops/pallas/
-PORT_ONLY = ("convert", "ops.kernels")
+# numpy interchange, the kernel layer that replaces ops/pallas/, and the
+# benchmark suite (the JAX package's is bench.py at the repository's root)
+PORT_ONLY = ("bench", "convert", "ops.kernels")
 
 
 def _port_modules():
