@@ -14,7 +14,11 @@ with gathers and scatters only, bit-identical to the JAX package's:
 The algorithm is deterministic, so tables, slots and `ok` equal the JAX
 package's exactly. The uint32 arithmetic of the hash is done in int64 and
 masked to 32 bits. The probe and claim loops stop early once every lane is
-resolved; the remaining rounds of the JAX loop change nothing.
+resolved; the remaining rounds of the JAX loop change nothing. Each test of
+that exit is one host read (sites `hash.find` and `hash.claim` of
+utils/timer.py's `host_read`), each round past it one count in
+`hash.probe_rounds` or `hash.claim_rounds`, and the two functions are the
+spans `hash.find` and `hash.activate`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from open3d_tpu_torch.core.platform import default_device
+from open3d_tpu_torch.utils.timer import count, host_read, span
 
 KEY_WORDS = 2
 
@@ -108,23 +113,25 @@ def _home(keys: torch.Tensor, C: int) -> torch.Tensor:
 def find(table: torch.Tensor, query: torch.Tensor, max_probes: int = 32):
     """Look up packed key pairs (N, 2). Returns (slot (N,) int32, found (N,)
     bool); slot is valid only where found."""
-    C = table.shape[0]
-    h = _home(query, C)
-    q0, q1 = query[..., 0], query[..., 1]
-    valid_q = is_valid(query)
-    slot = torch.full(q0.shape, -1, dtype=torch.int64, device=query.device)
-    found = torch.zeros(q0.shape, dtype=torch.bool, device=query.device)
-    dead = ~valid_q
-    for p in range(max_probes):
-        if bool((found | dead).all()):
-            break
-        s = (h + p) % C
-        cur = table[s]
-        hit = (cur[..., 0] == q0) & (cur[..., 1] == q1) & ~found & ~dead
-        slot = torch.where(hit, s, slot)
-        found = found | hit
-        dead = dead | (cur[..., 1] == _EMPTY_W1)  # empty ends the chain
-    return slot.to(torch.int32), found & valid_q
+    with span("hash.find"):
+        C = table.shape[0]
+        h = _home(query, C)
+        q0, q1 = query[..., 0], query[..., 1]
+        valid_q = is_valid(query)
+        slot = torch.full(q0.shape, -1, dtype=torch.int64, device=query.device)
+        found = torch.zeros(q0.shape, dtype=torch.bool, device=query.device)
+        dead = ~valid_q
+        for p in range(max_probes):
+            if host_read("hash.find", (found | dead).all()):
+                break
+            count("hash.probe_rounds")
+            s = (h + p) % C
+            cur = table[s]
+            hit = (cur[..., 0] == q0) & (cur[..., 1] == q1) & ~found & ~dead
+            slot = torch.where(hit, s, slot)
+            found = found | hit
+            dead = dead | (cur[..., 1] == _EMPTY_W1)  # empty ends the chain
+        return slot.to(torch.int32), found & valid_q
 
 
 def activate(
@@ -136,42 +143,44 @@ def activate(
     """Insert-if-absent a batch of UNIQUE packed key pairs (N, 2); invalid
     rows are ignored. Returns (table, slot (N,) int32, ok (N,) bool).
     The returned table is a new tensor; the input is not modified."""
-    C = table.shape[0]
-    N = keys.shape[0]
-    dev = keys.device
-    h = _home(keys, C)
-    k0, k1 = keys[..., 0], keys[..., 1]
-    ids = torch.arange(N, dtype=torch.int64, device=dev)
-    big = N + 1
+    with span("hash.activate"):
+        C = table.shape[0]
+        N = keys.shape[0]
+        dev = keys.device
+        h = _home(keys, C)
+        k0, k1 = keys[..., 0], keys[..., 1]
+        ids = torch.arange(N, dtype=torch.int64, device=dev)
+        big = N + 1
 
-    slot0, found0 = find(table, keys, max_probes)
-    slot = slot0.to(torch.int64)
-    done = found0 | ~is_valid(keys)
-    p = torch.zeros(N, dtype=torch.int64, device=dev)
-    # one spare row: scatters of lanes that do not win land there and are
-    # dropped (JAX's mode="drop")
-    ext = torch.cat([table, table.new_zeros((1, 2))])
-    for _ in range(max_rounds):
-        if bool(done.all()):
-            break
-        s = (h + p) % C
-        cur = ext[s]
-        hit = (cur[..., 0] == k0) & (cur[..., 1] == k1) & ~done
-        slot = torch.where(hit, s, slot)
-        done = done | hit
-        free = ((cur[..., 1] & 1) == 0) & ~done  # empty or tombstone
-        claim = torch.full((C + 1,), big, dtype=torch.int64, device=dev)
-        claim.scatter_reduce_(0, torch.where(free, s, C), torch.where(free, ids, big), "amin")
-        win = free & (claim[s] == ids)
-        dst = torch.where(win, s, C)
-        ext.index_copy_(0, dst, torch.where(win[:, None], keys, 0))
-        ext[C] = 0
-        slot = torch.where(win, s, slot)
-        done = done | win
-        advance = ~done & ((cur[..., 1] & 1) == 1) & ~hit
-        p = p + advance.to(torch.int64)
-    ok = done & is_valid(keys)
-    return ext[:C].contiguous(), slot.to(torch.int32), ok
+        slot0, found0 = find(table, keys, max_probes)
+        slot = slot0.to(torch.int64)
+        done = found0 | ~is_valid(keys)
+        p = torch.zeros(N, dtype=torch.int64, device=dev)
+        # one spare row: scatters of lanes that do not win land there and are
+        # dropped (JAX's mode="drop")
+        ext = torch.cat([table, table.new_zeros((1, 2))])
+        for _ in range(max_rounds):
+            if host_read("hash.claim", done.all()):
+                break
+            count("hash.claim_rounds")
+            s = (h + p) % C
+            cur = ext[s]
+            hit = (cur[..., 0] == k0) & (cur[..., 1] == k1) & ~done
+            slot = torch.where(hit, s, slot)
+            done = done | hit
+            free = ((cur[..., 1] & 1) == 0) & ~done  # empty or tombstone
+            claim = torch.full((C + 1,), big, dtype=torch.int64, device=dev)
+            claim.scatter_reduce_(0, torch.where(free, s, C), torch.where(free, ids, big), "amin")
+            win = free & (claim[s] == ids)
+            dst = torch.where(win, s, C)
+            ext.index_copy_(0, dst, torch.where(win[:, None], keys, 0))
+            ext[C].zero_()  # not `= 0`, which reads a host scalar back on a card
+            slot = torch.where(win, s, slot)
+            done = done | win
+            advance = ~done & ((cur[..., 1] & 1) == 1) & ~hit
+            p = p + advance.to(torch.int64)
+        ok = done & is_valid(keys)
+        return ext[:C].contiguous(), slot.to(torch.int32), ok
 
 
 def erase(table: torch.Tensor, keys: torch.Tensor, max_probes: int = 32):

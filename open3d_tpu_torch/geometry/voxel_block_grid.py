@@ -20,6 +20,8 @@ O3DTPU_INTEGRATE_V1 is set), other resolutions per-voxel samples in plain
 torch and the row fuse K3. Raycast takes the tile march K2 on 16^3 grids
 and the sphere trace (plain torch) on the others; the colour, normal and
 index/ratio maps on either path read the grid through a dense block index.
+The touch and the march's maps are the spans `integrate.touch` and
+`raycast.maps` of utils/timer.py's recorder.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from open3d_tpu_torch.core.masking import FAR_COORD, _div, compact_indices, lexs
 from open3d_tpu_torch.core.platform import default_device
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.pointcloud import PointCloud
+from open3d_tpu_torch.utils.timer import span
 
 _TSDF_SCALE = 16383.0
 
@@ -160,33 +163,35 @@ def compute_unique_block_coordinates(
     """Packed keys of every block within sdf_trunc of the depth surface, from
     a `stride`-downsampled depth image. Returns (keys (frame_block_capacity,
     2) int32 invalid-padded, count () int32 before the capacity clamp)."""
-    d = depth[::stride, ::stride]
-    H, W = d.shape
-    dev = depth.device
-    u = (torch.arange(W, dtype=torch.float32, device=dev) * stride)[None, :]
-    v = (torch.arange(H, dtype=torch.float32, device=dev) * stride)[:, None]
-    valid = (d > 0) & (d < depth_max)
-    x = ((u - intrinsic.cx) / intrinsic.fx).expand(H, W)
-    y = ((v - intrinsic.cy) / intrinsic.fy).expand(H, W)
-    ray = torch.stack([x, y, torch.ones_like(x)], dim=-1)  # direction per unit z
-    E = extrinsic.to(device=dev, dtype=torch.float32)
-    R = E[:3, :3]
-    t = E[:3, 3]
-    cam_origin = -R.T @ t
+    with span("integrate.touch"):
+        d = depth[::stride, ::stride]
+        H, W = d.shape
+        dev = depth.device
+        u = (torch.arange(W, dtype=torch.float32, device=dev) * stride)[None, :]
+        v = (torch.arange(H, dtype=torch.float32, device=dev) * stride)[:, None]
+        valid = (d > 0) & (d < depth_max)
+        x = ((u - intrinsic.cx) / intrinsic.fx).expand(H, W)
+        y = ((v - intrinsic.cy) / intrinsic.fy).expand(H, W)
+        ray = torch.stack([x, y, torch.ones_like(x)], dim=-1)  # direction per unit z
+        E = extrinsic.to(device=dev, dtype=torch.float32)
+        R = E[:3, :3]
+        t = E[:3, 3]
+        cam_origin = -R.T @ t
 
-    bs = vbg.block_size
-    n_steps = max(int(2.0 * vbg.sdf_trunc / bs + 0.5) + 2, 2)
-    zs = torch.linspace(-vbg.sdf_trunc, vbg.sdf_trunc, n_steps, dtype=torch.float32, device=dev)
-    keys_all = []
-    for i in range(n_steps):
-        z = d + zs[i]
-        p_cam = ray * z[..., None]
-        p_world = p_cam.reshape(-1, 3) @ R + cam_origin  # R^T applied row-wise
-        block = torch.floor(p_world / bs).to(torch.int32)
-        keys = hm.pack_coords(block)
-        ok = valid.reshape(-1) & (z > 0).reshape(-1)
-        keys_all.append(torch.where(ok[:, None], keys, 0))
-    return hm.unique_keys(torch.cat(keys_all), frame_block_capacity)
+        bs = vbg.block_size
+        n_steps = max(int(2.0 * vbg.sdf_trunc / bs + 0.5) + 2, 2)
+        zs = torch.linspace(-vbg.sdf_trunc, vbg.sdf_trunc, n_steps, dtype=torch.float32,
+                            device=dev)
+        keys_all = []
+        for i in range(n_steps):
+            z = d + zs[i]
+            p_cam = ray * z[..., None]
+            p_world = p_cam.reshape(-1, 3) @ R + cam_origin  # R^T applied row-wise
+            block = torch.floor(p_world / bs).to(torch.int32)
+            keys = hm.pack_coords(block)
+            ok = valid.reshape(-1) & (z > 0).reshape(-1)
+            keys_all.append(torch.where(ok[:, None], keys, 0))
+        return hm.unique_keys(torch.cat(keys_all), frame_block_capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +299,9 @@ def integrate(
                        rows, tsdf_new, wn, cnew, weight_max)
         # restore the dump-row invariant (the kernel skips row C; the plain
         # version writes it back unchanged)
-        vbg.tw[C] = 0
+        vbg.tw[C].zero_()
         if cnew is not None:
-            vbg.color[C] = 0
+            vbg.color[C].zero_()
         return vbg
 
     coords = hm.unpack_coords(block_keys).contiguous()
@@ -319,9 +324,11 @@ def integrate(
             vbg.tw, vbg.color, rows, coords, d21, rgb24, intrinsic,
             extrinsic, vbg.voxel_size, vbg.sdf_trunc, depth_max, weight_max,
         )
-    vbg.tw[C] = 0
+    # zero_(), not `= 0`: PyTorch stores a Python scalar into a CUDA tensor
+    # through a host tensor it reads back (a host read in the profile)
+    vbg.tw[C].zero_()
     if vbg.color is not None:
-        vbg.color[C] = 0
+        vbg.color[C].zero_()
     return vbg
 
 
@@ -652,22 +659,23 @@ def _maps_on_depth(vbg, intrinsic, extrinsic, depth_img, depth_max, with_color=T
     """Vertex, mask and the asked-for maps from a raycast depth image (the
     march's), as the JAX package's `_raycast_pallas` assembles them. The
     dense index is built only when a map needs it."""
-    H, W = intrinsic.height, intrinsic.width
-    dev = vbg.device
-    E = extrinsic.to(device=dev, dtype=torch.float32)
-    mask = depth_img > 0
-    any_map = (with_color and vbg.has_color) or with_normals or with_index_ratio
-    origin, dirs = (_pixel_rays if any_map else _march_rays)(intrinsic, E)
-    p_hit = origin + dirs * depth_img[..., None]
-    vertex = torch.where(mask[..., None], p_hit, 0.0)
-    maps = {"color": torch.zeros((H, W, 3), dtype=torch.float32, device=dev)}
-    if any_map:
-        bindex = build_block_index(vbg, origin, _index_extent(vbg, depth_max))
-        p = p_hit.reshape(-1, 3)
-        voxel = torch.floor(_div(p, vbg.voxel_size)).to(torch.int32)
-        maps = _surface_maps(vbg, bindex, p, dirs.reshape(-1, 3), mask.reshape(-1), voxel,
-                             (H, W), with_color, with_normals, with_index_ratio)
-    return RaycastResult(depth=depth_img, vertex=vertex, mask=mask, **maps)
+    with span("raycast.maps"):
+        H, W = intrinsic.height, intrinsic.width
+        dev = vbg.device
+        E = extrinsic.to(device=dev, dtype=torch.float32)
+        mask = depth_img > 0
+        any_map = (with_color and vbg.has_color) or with_normals or with_index_ratio
+        origin, dirs = (_pixel_rays if any_map else _march_rays)(intrinsic, E)
+        p_hit = origin + dirs * depth_img[..., None]
+        vertex = torch.where(mask[..., None], p_hit, 0.0)
+        maps = {"color": torch.zeros((H, W, 3), dtype=torch.float32, device=dev)}
+        if any_map:
+            bindex = build_block_index(vbg, origin, _index_extent(vbg, depth_max))
+            p = p_hit.reshape(-1, 3)
+            voxel = torch.floor(_div(p, vbg.voxel_size)).to(torch.int32)
+            maps = _surface_maps(vbg, bindex, p, dirs.reshape(-1, 3), mask.reshape(-1), voxel,
+                                 (H, W), with_color, with_normals, with_index_ratio)
+        return RaycastResult(depth=depth_img, vertex=vertex, mask=mask, **maps)
 
 
 class _TraceState(NamedTuple):

@@ -10,6 +10,10 @@ runs eagerly and the grid's payload tensors are updated in place, so the
 SLAMModel passed in shares its grid with the one returned. Pose, fitness
 and the frame-0 and tracking-failure rules stay on the device (torch.where);
 the host syncs only inside the odometry and hash loops.
+
+The step and its layers are spans of utils/timer.py's recorder (off unless
+enabled): `slam_step` holds `track`, `integrate` and `raycast`, each with
+the model's frame id.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.rgbd import RGBDImage
 from open3d_tpu_torch.geometry.voxel_block_grid import VoxelBlockGrid
 from open3d_tpu_torch.pipelines import odometry as odom
+from open3d_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,23 +104,24 @@ def synthesize_model_frame(model: SLAMModel, intrinsic: PinholeCameraIntrinsic):
     """Raycast the TSDF from the current pose. Normals, when the config asks
     for them, come back in the camera frame, beside the camera-frame vertex
     maps that tracking builds from the depth."""
-    cfg = model.config
-    if cfg.model_raycast_stride > 1:
-        intrinsic = intrinsic.scaled(1.0 / cfg.model_raycast_stride)
-    extrinsic = lie.invert_se3(model.T_frame_to_world)
-    ray = vbg_mod.raycast(
-        model.vbg,
-        intrinsic,
-        extrinsic,
-        depth_min=cfg.depth_min,
-        depth_max=cfg.depth_max,
-        max_steps=cfg.raycast_max_steps,
-        with_color=cfg.with_color and cfg.raycast_color,
-        with_normals=cfg.raycast_normals,
-    )
-    if ray.normal is not None:
-        ray = ray._replace(normal=ray.normal @ extrinsic[:3, :3].T)
-    return ray
+    with span("raycast", model.frame_id):
+        cfg = model.config
+        if cfg.model_raycast_stride > 1:
+            intrinsic = intrinsic.scaled(1.0 / cfg.model_raycast_stride)
+        extrinsic = lie.invert_se3(model.T_frame_to_world)
+        ray = vbg_mod.raycast(
+            model.vbg,
+            intrinsic,
+            extrinsic,
+            depth_min=cfg.depth_min,
+            depth_max=cfg.depth_max,
+            max_steps=cfg.raycast_max_steps,
+            with_color=cfg.with_color and cfg.raycast_color,
+            with_normals=cfg.raycast_normals,
+        )
+        if ray.normal is not None:
+            ray = ray._replace(normal=ray.normal @ extrinsic[:3, :3].T)
+        return ray
 
 
 def track_frame_to_model(
@@ -132,19 +138,20 @@ def track_frame_to_model(
 ) -> odom.OdometryResult:
     """Frame-to-model odometry: source = input frame, target = the model
     raycast at the previous pose; T maps input-frame points into it."""
-    stride = model.config.model_raycast_stride
-    if stride > 1:
-        for _ in range(int(stride).bit_length() - 1):
-            input_depth = im.pyrdown_depth(input_depth)
-        intrinsic = intrinsic.scaled(1.0 / stride)
-    src = RGBDImage(color=torch.zeros_like(input_depth), depth=input_depth)
-    tgt = RGBDImage(color=torch.zeros_like(model_depth), depth=model_depth)
-    return odom.rgbd_odometry_multi_scale(
-        src, tgt, intrinsic,
-        method=model.config.odometry_method,
-        criteria=criteria,
-        target_normals=model_normals,
-    )
+    with span("track", model.frame_id):
+        stride = model.config.model_raycast_stride
+        if stride > 1:
+            for _ in range(int(stride).bit_length() - 1):
+                input_depth = im.pyrdown_depth(input_depth)
+            intrinsic = intrinsic.scaled(1.0 / stride)
+        src = RGBDImage(color=torch.zeros_like(input_depth), depth=input_depth)
+        tgt = RGBDImage(color=torch.zeros_like(model_depth), depth=model_depth)
+        return odom.rgbd_odometry_multi_scale(
+            src, tgt, intrinsic,
+            method=model.config.odometry_method,
+            criteria=criteria,
+            target_normals=model_normals,
+        )
 
 
 def integrate_frame(
@@ -155,17 +162,18 @@ def integrate_frame(
 ):
     """Touch + integrate. Returns (model, touched_count), the count taken
     before the frame_block_capacity clamp so truncation is detectable."""
-    cfg = model.config
-    extrinsic = lie.invert_se3(model.T_frame_to_world)
-    keys, touched = vbg_mod.compute_unique_block_coordinates(
-        model.vbg, depth, intrinsic, extrinsic,
-        depth_max=cfg.depth_max,
-        frame_block_capacity=cfg.frame_block_capacity,
-    )
-    new_vbg = vbg_mod.integrate(
-        model.vbg, keys, depth, color, intrinsic, extrinsic, depth_max=cfg.depth_max
-    )
-    return dataclasses.replace(model, vbg=new_vbg), touched
+    with span("integrate", model.frame_id):
+        cfg = model.config
+        extrinsic = lie.invert_se3(model.T_frame_to_world)
+        keys, touched = vbg_mod.compute_unique_block_coordinates(
+            model.vbg, depth, intrinsic, extrinsic,
+            depth_max=cfg.depth_max,
+            frame_block_capacity=cfg.frame_block_capacity,
+        )
+        new_vbg = vbg_mod.integrate(
+            model.vbg, keys, depth, color, intrinsic, extrinsic, depth_max=cfg.depth_max
+        )
+        return dataclasses.replace(model, vbg=new_vbg), touched
 
 
 def slam_step(
@@ -180,18 +188,20 @@ def slam_step(
     """One dense-SLAM frame: track -> update pose -> integrate -> raycast.
     A tracking failure (fitness below the threshold) keeps the previous
     pose; frame 0 keeps the initial pose."""
-    is_first = model.frame_id == 0
-    result = track_frame_to_model(model, depth, model_depth, intrinsic, model_normals=model_normal)
-    eye = torch.eye(4, dtype=torch.float32, device=depth.device)
-    ok = (result.fitness > fitness_threshold) & (not is_first)
-    delta = torch.where(ok, result.transformation, eye)
-    # the delta maps new-frame points into the previous frame (src -> tgt)
-    T_new = model.T_frame_to_world @ (eye if is_first else delta)
-    model = dataclasses.replace(model, T_frame_to_world=T_new)
+    with span("slam_step", model.frame_id):
+        is_first = model.frame_id == 0
+        result = track_frame_to_model(model, depth, model_depth, intrinsic,
+                                      model_normals=model_normal)
+        eye = torch.eye(4, dtype=torch.float32, device=depth.device)
+        ok = (result.fitness > fitness_threshold) & (not is_first)
+        delta = torch.where(ok, result.transformation, eye)
+        # the delta maps new-frame points into the previous frame (src -> tgt)
+        T_new = model.T_frame_to_world @ (eye if is_first else delta)
+        model = dataclasses.replace(model, T_frame_to_world=T_new)
 
-    model, touched = integrate_frame(model, depth, color, intrinsic)
-    ray = synthesize_model_frame(model, intrinsic)
-    model = dataclasses.replace(model, frame_id=model.frame_id + 1)
+        model, touched = integrate_frame(model, depth, color, intrinsic)
+        ray = synthesize_model_frame(model, intrinsic)
+        model = dataclasses.replace(model, frame_id=model.frame_id + 1)
     return FrameResult(
         model=model,
         tracking_ok=ok | is_first,

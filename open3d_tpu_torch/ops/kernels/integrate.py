@@ -53,6 +53,7 @@ from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels.integrate2 import _integrate_plain, _params
+from open3d_tpu_torch.utils.timer import span
 
 _B = 16
 N_PLANES = 5  # d_hi, d_lo, r, g, b
@@ -133,30 +134,31 @@ def integrate_blocks(
     if color is not None:
         check_aligned("color", color)
 
-    if dev.type == "cpu":
-        integrate_blocks_plain_v1(
-            tw, color, slots, coords, planes, intrinsic, extrinsic,
-            voxel_size, sdf_trunc, depth_max, weight_max,
+    with span("k4.launch"):
+        if dev.type == "cpu":
+            integrate_blocks_plain_v1(
+                tw, color, slots, coords, planes, intrinsic, extrinsic,
+                voxel_size, sdf_trunc, depth_max, weight_max,
+            )
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"integrate_blocks: unsupported device {dev}")
+
+        from open3d_tpu_torch.ops.kernels import _build
+
+        lib = _build.load()
+        params = _params(extrinsic, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.o3dt_integrate_blocks_v1(
+            tw.data_ptr(), color.data_ptr() if color is not None else None,
+            slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
+            planes.data_ptr(), H, W, params.data_ptr(),
+            intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
+            voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
+            weight_max, stream,
         )
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"integrate_blocks: unsupported device {dev}")
-
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    params = _params(extrinsic, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.o3dt_integrate_blocks_v1(
-        tw.data_ptr(), color.data_ptr() if color is not None else None,
-        slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
-        planes.data_ptr(), H, W, params.data_ptr(),
-        intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
-        voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
-        weight_max, stream,
-    )
-    _build.check(err)
-    integrate_blocks.launches += 1
+        _build.check(err)
+        integrate_blocks.launches += 1
 
 
 integrate_blocks.launches = 0

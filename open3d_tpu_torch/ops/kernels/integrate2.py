@@ -43,6 +43,7 @@ from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
+from open3d_tpu_torch.utils.timer import span
 
 _B = 16
 _B3 = _B**3
@@ -231,32 +232,33 @@ def integrate_blocks_v2(
     if color is not None:
         check_aligned("color", color)
 
-    if dev.type == "cpu":
-        integrate_blocks_plain(
-            tw, color, slots, coords, d21, rgb24, intrinsic, extrinsic,
-            voxel_size, sdf_trunc, depth_max, weight_max,
+    with span("k1.launch"):
+        if dev.type == "cpu":
+            integrate_blocks_plain(
+                tw, color, slots, coords, d21, rgb24, intrinsic, extrinsic,
+                voxel_size, sdf_trunc, depth_max, weight_max,
+            )
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"integrate_blocks_v2: unsupported device {dev}")
+
+        from open3d_tpu_torch.ops.kernels import _build
+
+        lib = _build.load()
+        params = _params(extrinsic, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.o3dt_integrate_blocks(
+            tw.data_ptr(),
+            color.data_ptr() if color is not None else None,
+            slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
+            d21.data_ptr(), rgb24.data_ptr() if rgb24 is not None else None, H, W,
+            params.data_ptr(),
+            intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
+            voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
+            depth_max / _D21, weight_max, stream,
         )
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"integrate_blocks_v2: unsupported device {dev}")
-
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    params = _params(extrinsic, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.o3dt_integrate_blocks(
-        tw.data_ptr(),
-        color.data_ptr() if color is not None else None,
-        slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
-        d21.data_ptr(), rgb24.data_ptr() if rgb24 is not None else None, H, W,
-        params.data_ptr(),
-        intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
-        voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
-        depth_max / _D21, weight_max, stream,
-    )
-    _build.check(err)
-    integrate_blocks_v2.launches += 1
+        _build.check(err)
+        integrate_blocks_v2.launches += 1
 
 
 integrate_blocks_v2.launches = 0

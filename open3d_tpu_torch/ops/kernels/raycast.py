@@ -49,6 +49,7 @@ from open3d_tpu_torch.core import hashmap as hm
 from open3d_tpu_torch.core.masking import compact_indices
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
+from open3d_tpu_torch.utils.timer import host_read, span
 
 _TSDF_SCALE = 16383.0
 _SENTINEL = 2.0  # value of an unallocated voxel (tsdf is in [-1, 1])
@@ -86,90 +87,91 @@ def build_tile_lists(
     lax.top_k(score, K) becomes a stable descending sort, which breaks ties
     by the lower block index as top_k does: axis-aligned cameras give equal
     entry depths, and list order changes the march's carry and its break."""
-    TH = -(-intrinsic.height // tile)
-    TW = -(-intrinsic.width // tile)
-    T = TH * TW
-    bs = vbg.block_size
-    dev = vbg.table.device
-    E = extrinsic.to(device=dev, dtype=torch.float32)
-    R = E[:3, :3]
-    t = E[:3, 3]
-    corners = _corner_offsets(dev) * bs  # (8, 3)
+    with span("raycast.tile_lists"):
+        TH = -(-intrinsic.height // tile)
+        TW = -(-intrinsic.width // tile)
+        T = TH * TW
+        bs = vbg.block_size
+        dev = vbg.table.device
+        E = extrinsic.to(device=dev, dtype=torch.float32)
+        R = E[:3, :3]
+        t = E[:3, 3]
+        corners = _corner_offsets(dev) * bs  # (8, 3)
 
-    def project(coords):
-        c = coords.to(torch.float32)[:, None, :].expand(-1, 8, 3)
-        pw = fma(c, bs, corners)
-        pc = pw @ R.T + t  # (N, 8, 3)
-        z = pc[..., 2]
-        zs = torch.clamp(z, min=1e-6)
-        u = pc[..., 0] / zs * intrinsic.fx + intrinsic.cx
-        v = pc[..., 1] / zs * intrinsic.fy + intrinsic.cy
-        return z, u, v
+        def project(coords):
+            c = coords.to(torch.float32)[:, None, :].expand(-1, 8, 3)
+            pw = fma(c, bs, corners)
+            pc = pw @ R.T + t  # (N, 8, 3)
+            z = pc[..., 2]
+            zs = torch.clamp(z, min=1e-6)
+            u = pc[..., 0] / zs * intrinsic.fx + intrinsic.cx
+            v = pc[..., 1] / zs * intrinsic.fy + intrinsic.cy
+            return z, u, v
 
-    def on_image(u, v):
-        return (
-            (u.amax(-1) >= 0) & (u.amin(-1) < intrinsic.width)
-            & (v.amax(-1) >= 0) & (v.amin(-1) < intrinsic.height)
+        def on_image(u, v):
+            return (
+                (u.amax(-1) >= 0) & (u.amin(-1) < intrinsic.width)
+                & (v.amax(-1) >= 0) & (v.amin(-1) < intrinsic.height)
+            )
+
+        # visibility over all slots
+        occ = hm.occupied_mask(vbg.table)
+        z_all, u_all, v_all = project(hm.unpack_coords(vbg.table))
+        vis_all = occ & (z_all.amax(-1) > depth_min) & (z_all.amin(-1) < depth_max)
+        front_all = (z_all > 1e-4).all(-1)
+        vis_all = vis_all & (on_image(u_all, v_all) | ~front_all)
+
+        A = visible_capacity
+        vidx, vcount = compact_indices(vis_all, A)
+        vis_overflow = torch.clamp(vcount - A, min=0)
+        slots = torch.where(torch.arange(A, device=dev) < torch.clamp(vcount, max=A), vidx, -1)
+        live = slots >= 0
+        coords = hm.unpack_coords(vbg.table[torch.clamp(slots, min=0).long()])
+        z, u, v = project(coords)
+
+        front = (z > 1e-4).all(-1)
+        z0 = z.amin(-1)
+        z1 = z.amax(-1)
+        vis = live & (z1 > depth_min) & (z0 < depth_max)
+        tu0 = torch.clamp(torch.floor(u.amin(-1) / tile), 0, TW - 1).to(torch.int32)
+        tu1 = torch.clamp(torch.floor(u.amax(-1) / tile), 0, TW - 1).to(torch.int32)
+        tv0 = torch.clamp(torch.floor(v.amin(-1) / tile), 0, TH - 1).to(torch.int32)
+        tv1 = torch.clamp(torch.floor(v.amax(-1) / tile), 0, TH - 1).to(torch.int32)
+        ok = vis & on_image(u, v) & front
+        extra_mask = vis & ~front & (z1 > 0)
+
+        # dense (T, A) overlap: tile (ty, tx) intersects the block's bbox
+        t_iota = torch.arange(T, dtype=torch.int32, device=dev)
+        tx = (t_iota % TW)[:, None]
+        ty = (t_iota // TW)[:, None]
+        inside = (
+            ok[None, :]
+            & (tx >= tu0[None, :]) & (tx <= tu1[None, :])
+            & (ty >= tv0[None, :]) & (ty <= tv1[None, :])
         )
+        score = torch.where(inside, -z0[None, :], torch.tensor(-3.4e38, device=dev))
+        top_vals, top_idx = torch.sort(score, dim=1, descending=True, stable=True)
+        top_vals, top_idx = top_vals[:, :K], top_idx[:, :K]
+        validk = top_vals > -3.3e38
+        nk = validk.to(torch.int32).sum(1).to(torch.int32)
+        counts = inside.to(torch.int32).sum(1)
+        overflow = torch.clamp(counts - K, min=0).sum() + vis_overflow
+        rows_tk = torch.where(validk, slots[top_idx], -1).to(torch.int32)
 
-    # visibility over all slots
-    occ = hm.occupied_mask(vbg.table)
-    z_all, u_all, v_all = project(hm.unpack_coords(vbg.table))
-    vis_all = occ & (z_all.amax(-1) > depth_min) & (z_all.amin(-1) < depth_max)
-    front_all = (z_all > 1e-4).all(-1)
-    vis_all = vis_all & (on_image(u_all, v_all) | ~front_all)
+        eidx, ecount = compact_indices(extra_mask, G)
+        n_extra = torch.clamp(ecount, max=G).to(torch.int32)
+        evalid = torch.arange(G, device=dev) < n_extra
+        erows = torch.where(evalid, slots[torch.clamp(eidx, min=0).long()], -1).to(torch.int32)
 
-    A = visible_capacity
-    vidx, vcount = compact_indices(vis_all, A)
-    vis_overflow = torch.clamp(vcount - A, min=0)
-    slots = torch.where(torch.arange(A, device=dev) < torch.clamp(vcount, max=A), vidx, -1)
-    live = slots >= 0
-    coords = hm.unpack_coords(vbg.table[torch.clamp(slots, min=0).long()])
-    z, u, v = project(coords)
-
-    front = (z > 1e-4).all(-1)
-    z0 = z.amin(-1)
-    z1 = z.amax(-1)
-    vis = live & (z1 > depth_min) & (z0 < depth_max)
-    tu0 = torch.clamp(torch.floor(u.amin(-1) / tile), 0, TW - 1).to(torch.int32)
-    tu1 = torch.clamp(torch.floor(u.amax(-1) / tile), 0, TW - 1).to(torch.int32)
-    tv0 = torch.clamp(torch.floor(v.amin(-1) / tile), 0, TH - 1).to(torch.int32)
-    tv1 = torch.clamp(torch.floor(v.amax(-1) / tile), 0, TH - 1).to(torch.int32)
-    ok = vis & on_image(u, v) & front
-    extra_mask = vis & ~front & (z1 > 0)
-
-    # dense (T, A) overlap: tile (ty, tx) intersects the block's bbox
-    t_iota = torch.arange(T, dtype=torch.int32, device=dev)
-    tx = (t_iota % TW)[:, None]
-    ty = (t_iota // TW)[:, None]
-    inside = (
-        ok[None, :]
-        & (tx >= tu0[None, :]) & (tx <= tu1[None, :])
-        & (ty >= tv0[None, :]) & (ty <= tv1[None, :])
-    )
-    score = torch.where(inside, -z0[None, :], torch.tensor(-3.4e38, device=dev))
-    top_vals, top_idx = torch.sort(score, dim=1, descending=True, stable=True)
-    top_vals, top_idx = top_vals[:, :K], top_idx[:, :K]
-    validk = top_vals > -3.3e38
-    nk = validk.to(torch.int32).sum(1).to(torch.int32)
-    counts = inside.to(torch.int32).sum(1)
-    overflow = torch.clamp(counts - K, min=0).sum() + vis_overflow
-    rows_tk = torch.where(validk, slots[top_idx], -1).to(torch.int32)
-
-    eidx, ecount = compact_indices(extra_mask, G)
-    n_extra = torch.clamp(ecount, max=G).to(torch.int32)
-    evalid = torch.arange(G, device=dev) < n_extra
-    erows = torch.where(evalid, slots[torch.clamp(eidx, min=0).long()], -1).to(torch.int32)
-
-    rows_all = torch.cat([rows_tk.reshape(-1), erows])
-    coords_all = hm.unpack_coords(vbg.table[torch.clamp(rows_all, min=0).long()])
-    return TileLists(
-        rows=rows_all.contiguous(),
-        coords=coords_all.to(torch.int32).contiguous(),
-        nk=nk.contiguous(),
-        n_extra=n_extra.reshape(1).contiguous(),
-        overflow=overflow.to(torch.int32),
-    )
+        rows_all = torch.cat([rows_tk.reshape(-1), erows])
+        coords_all = hm.unpack_coords(vbg.table[torch.clamp(rows_all, min=0).long()])
+        return TileLists(
+            rows=rows_all.contiguous(),
+            coords=coords_all.to(torch.int32).contiguous(),
+            nk=nk.contiguous(),
+            n_extra=n_extra.reshape(1).contiguous(),
+            overflow=overflow.to(torch.int32),
+        )
 
 
 def _march_params(extrinsic: torch.Tensor, device) -> torch.Tensor:
@@ -239,9 +241,9 @@ def march_tiles_plain(
     zhit = torch.full((T, NR), _BIG, dtype=torch.float32, device=dev)
     pv = torch.ones((T, NR), dtype=torch.float32, device=dev)
     pz = torch.zeros((T, NR), dtype=torch.float32, device=dev)
-    nex = int(n_extra[0])
+    nex = host_read("march_plain.n_extra", n_extra[0])
     nk_tot = nk.to(torch.int64) + nex
-    k_max = int(nk_tot.max()) if T > 0 else 0
+    k_max = host_read("march_plain.k_max", nk_tot.max()) if T > 0 else 0
     TK = T * K
     mio = torch.arange(M, dtype=torch.float32, device=dev)
     marched, sectors = [], []
@@ -257,7 +259,7 @@ def march_tiles_plain(
 
     for k in range(k_max):
         going = (k < nk_tot) & ~(zhit < _BIG).all(1)  # (T,)
-        if not bool(going.any()):
+        if not host_read("march_plain.going", going.any()):
             break
         idx = TK + k if k < nex else t_ids * K + (k - nex)
         idx = torch.clamp(torch.as_tensor(idx, device=dev).expand(T), max=rows.shape[0] - 1)
@@ -366,31 +368,32 @@ def march_tiles(
     _check("lists.n_extra", lists.n_extra, torch.int32, dev, (1,))
     rows = torch.where(lists.rows >= 0, lists.rows, C).to(torch.int32).contiguous()
 
-    if dev.type == "cpu":
-        return march_tiles_plain(
-            vbg.tw, rows, lists.coords, lists.nk, lists.n_extra, intrinsic, extrinsic,
-            vbg.voxel_size, depth_min, depth_max, tile=tile, K=K, M=M,
+    with span("k2.launch"):
+        if dev.type == "cpu":
+            return march_tiles_plain(
+                vbg.tw, rows, lists.coords, lists.nk, lists.n_extra, intrinsic, extrinsic,
+                vbg.voxel_size, depth_min, depth_max, tile=tile, K=K, M=M,
+            )
+        if dev.type != "cuda":
+            raise ValueError(f"march_tiles: unsupported device {dev}")
+
+        from open3d_tpu_torch.ops.kernels import _build
+
+        lib = _build.load()
+        params = _march_params(extrinsic, dev)
+        out = torch.empty((H, W), dtype=torch.float32, device=dev)
+        vs = vbg.voxel_size
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.o3dt_march_tiles(
+            vbg.tw.data_ptr(), rows.data_ptr(), lists.coords.data_ptr(), lists.nk.data_ptr(),
+            lists.n_extra.data_ptr(), params.data_ptr(), out.data_ptr(),
+            T, TW, H, W, K, M,
+            intrinsic.cx, intrinsic.cy, 1.0 / intrinsic.fx, 1.0 / intrinsic.fy,
+            vs, vs * 16, 1.0 / vs, 0.5 * vs, 2.0 * vs, 1.0 / M, depth_min, depth_max,
+            stream,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"march_tiles: unsupported device {dev}")
-
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    params = _march_params(extrinsic, dev)
-    out = torch.empty((H, W), dtype=torch.float32, device=dev)
-    vs = vbg.voxel_size
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.o3dt_march_tiles(
-        vbg.tw.data_ptr(), rows.data_ptr(), lists.coords.data_ptr(), lists.nk.data_ptr(),
-        lists.n_extra.data_ptr(), params.data_ptr(), out.data_ptr(),
-        T, TW, H, W, K, M,
-        intrinsic.cx, intrinsic.cy, 1.0 / intrinsic.fx, 1.0 / intrinsic.fy,
-        vs, vs * 16, 1.0 / vs, 0.5 * vs, 2.0 * vs, 1.0 / M, depth_min, depth_max,
-        stream,
-    )
-    _build.check(err)
-    march_tiles.launches += 1
+        _build.check(err)
+        march_tiles.launches += 1
     return out
 
 

@@ -39,6 +39,7 @@ import torch
 
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
+from open3d_tpu_torch.utils.timer import span
 
 _TSDF_SCALE = 16383.0
 
@@ -126,24 +127,25 @@ def fuse_blocks(
             if t is not None:
                 check_aligned(name, t)
 
-    if dev.type == "cpu":
-        fuse_blocks_plain(tw, color, rows, tsdf_new, wn, cnew, weight_max)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"fuse_blocks: unsupported device {dev}")
+    with span("k3.launch"):
+        if dev.type == "cpu":
+            fuse_blocks_plain(tw, color, rows, tsdf_new, wn, cnew, weight_max)
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"fuse_blocks: unsupported device {dev}")
 
-    from open3d_tpu_torch.ops.kernels import _build
+        from open3d_tpu_torch.ops.kernels import _build
 
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.o3dt_fuse_blocks(
-        tw.data_ptr(), color.data_ptr() if color is not None else None,
-        rows.data_ptr(), tsdf_new.data_ptr(), wn.data_ptr(),
-        cnew.data_ptr() if cnew is not None else None,
-        M, C1 - 1, B3, weight_max, stream,
-    )
-    _build.check(err)
-    fuse_blocks.launches += 1
+        lib = _build.load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.o3dt_fuse_blocks(
+            tw.data_ptr(), color.data_ptr() if color is not None else None,
+            rows.data_ptr(), tsdf_new.data_ptr(), wn.data_ptr(),
+            cnew.data_ptr() if cnew is not None else None,
+            M, C1 - 1, B3, weight_max, stream,
+        )
+        _build.check(err)
+        fuse_blocks.launches += 1
 
 
 fuse_blocks.launches = 0

@@ -6,8 +6,11 @@ Each pyramid level runs a Gauss-Newton loop over all pixels: per-pixel
 Jacobian rows, one (6, HW) @ (HW, 6) product, a 6x6 solve on the device.
 The JAX package keeps the convergence test on the device inside
 lax.while_loop; here the loop is a Python loop that reads the RMSE once per
-iteration (one host sync), with the same convergence rule, so the iterates
-are the same.
+iteration (one host sync, the site `odometry.rmse` of utils/timer.py's
+`host_read`), with the same convergence rule, so the iterates are the same.
+Each pass of the loop counts one in `odometry.gn_iterations`; the pyramid
+builds, each level and the final metrics are the spans `odometry.pyramid`,
+`odometry.level` (attribute `level`) and `odometry.final`.
 
 JtJ is a float32 matmul: it assumes torch.backends.cuda.matmul.allow_tf32
 is False (PyTorch's default), as TF32 keeps only about three digits.
@@ -26,6 +29,7 @@ from open3d_tpu_torch.geometry import image as im
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.rgbd import RGBDImage
 from open3d_tpu_torch.ops.kernels._plain import fma
+from open3d_tpu_torch.utils.timer import count, host_read, span
 
 POINT_TO_PLANE = "point_to_plane"
 INTENSITY = "intensity"
@@ -191,6 +195,7 @@ _ROWS = {POINT_TO_PLANE: _rows_point_to_plane, INTENSITY: _rows_intensity, HYBRI
 def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, loss):
     prev_rmse = None
     for it in range(criteria.max_iteration):
+        count("odometry.gn_iterations")
         J, r, w, valid = rows(ld, T, loss)
         Jw = J * w[:, None]
         JtJ = Jw.T @ J
@@ -200,7 +205,7 @@ def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, lo
         n_in = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
         rmse = torch.sqrt(torch.sum(torch.where(w > 0, r * r, 0.0)) / n_in)
         # the host reads the RMSE: the loop's one sync per iteration
-        rmse_h = float(rmse)
+        rmse_h = host_read("odometry.rmse", rmse)
         if it > 0 and abs(prev_rmse - rmse_h) < criteria.relative_rmse:
             break
         prev_rmse = rmse_h
@@ -230,14 +235,16 @@ def rgbd_odometry_multi_scale(
     rows = _ROWS[method]
     n_levels = len(criteria)
     dev = source.depth.device
-    src_depth_pyr = im.build_depth_pyramid(source.depth, n_levels)
-    tgt_depth_pyr = im.build_depth_pyramid(target.depth, n_levels)
-    tgt_nrm_pyr = (
-        im.build_normal_pyramid(target_normals, n_levels) if target_normals is not None else None
-    )
     use_intensity = method in (INTENSITY, HYBRID)
-    src_int_pyr = im.build_intensity_pyramid(source.color, n_levels) if use_intensity else None
-    tgt_int_pyr = im.build_intensity_pyramid(target.color, n_levels) if use_intensity else None
+    with span("odometry.pyramid"):
+        src_depth_pyr = im.build_depth_pyramid(source.depth, n_levels)
+        tgt_depth_pyr = im.build_depth_pyramid(target.depth, n_levels)
+        tgt_nrm_pyr = (
+            im.build_normal_pyramid(target_normals, n_levels)
+            if target_normals is not None else None
+        )
+        src_int_pyr = im.build_intensity_pyramid(source.color, n_levels) if use_intensity else None
+        tgt_int_pyr = im.build_intensity_pyramid(target.color, n_levels) if use_intensity else None
     T = (
         torch.eye(4, dtype=torch.float32, device=dev)
         if init is None
@@ -245,34 +252,37 @@ def rgbd_odometry_multi_scale(
     )
 
     for lvl in reversed(range(n_levels)):
-        intr_l = intrinsic.scaled(0.5**lvl)
-        sd, td = src_depth_pyr[lvl], tgt_depth_pyr[lvl]
-        if bilateral_filter:
-            td = im.filter_bilateral_depth(td)
-            sd = im.filter_bilateral_depth(sd)
-        src_vtx = im.create_vertex_map(sd, intr_l)
-        tgt_vtx = im.create_vertex_map(td, intr_l)
-        tgt_nrm = tgt_nrm_pyr[lvl] if tgt_nrm_pyr is not None else im.create_normal_map(tgt_vtx)
-        ld = _LevelData(
-            src_vtx, src_int_pyr[lvl] if use_intensity else None, tgt_vtx, tgt_nrm,
-            tgt_int_pyr[lvl] if use_intensity else None, intr_l,
-        )
-        T = _gn_level(ld, T, rows, criteria[n_levels - 1 - lvl], loss)
+        with span("odometry.level", level=lvl):
+            intr_l = intrinsic.scaled(0.5**lvl)
+            sd, td = src_depth_pyr[lvl], tgt_depth_pyr[lvl]
+            if bilateral_filter:
+                td = im.filter_bilateral_depth(td)
+                sd = im.filter_bilateral_depth(sd)
+            src_vtx = im.create_vertex_map(sd, intr_l)
+            tgt_vtx = im.create_vertex_map(td, intr_l)
+            tgt_nrm = (tgt_nrm_pyr[lvl] if tgt_nrm_pyr is not None
+                       else im.create_normal_map(tgt_vtx))
+            ld = _LevelData(
+                src_vtx, src_int_pyr[lvl] if use_intensity else None, tgt_vtx, tgt_nrm,
+                tgt_int_pyr[lvl] if use_intensity else None, intr_l,
+            )
+            T = _gn_level(ld, T, rows, criteria[n_levels - 1 - lvl], loss)
 
     # final metrics at the finest level
-    tgt_vtx0 = im.create_vertex_map(tgt_depth_pyr[0], intrinsic)
-    ld = _LevelData(
-        im.create_vertex_map(src_depth_pyr[0], intrinsic),
-        src_int_pyr[0] if use_intensity else None,
-        tgt_vtx0,
-        tgt_nrm_pyr[0] if tgt_nrm_pyr is not None else im.create_normal_map(tgt_vtx0),
-        tgt_int_pyr[0] if use_intensity else None,
-        intrinsic,
-    )
-    _, r, w, valid = rows(ld, T, loss)
-    n_src = torch.clamp(torch.sum(ld.src_valid.to(torch.float32)), min=1.0)
-    n_in = torch.sum(valid.to(torch.float32))
-    rmse = torch.sqrt(torch.sum(torch.where(w > 0, r * r, 0.0)) / torch.clamp(n_in, min=1.0))
+    with span("odometry.final"):
+        tgt_vtx0 = im.create_vertex_map(tgt_depth_pyr[0], intrinsic)
+        ld = _LevelData(
+            im.create_vertex_map(src_depth_pyr[0], intrinsic),
+            src_int_pyr[0] if use_intensity else None,
+            tgt_vtx0,
+            tgt_nrm_pyr[0] if tgt_nrm_pyr is not None else im.create_normal_map(tgt_vtx0),
+            tgt_int_pyr[0] if use_intensity else None,
+            intrinsic,
+        )
+        _, r, w, valid = rows(ld, T, loss)
+        n_src = torch.clamp(torch.sum(ld.src_valid.to(torch.float32)), min=1.0)
+        n_in = torch.sum(valid.to(torch.float32))
+        rmse = torch.sqrt(torch.sum(torch.where(w > 0, r * r, 0.0)) / torch.clamp(n_in, min=1.0))
     return OdometryResult(transformation=T, fitness=n_in / n_src, inlier_rmse=rmse)
 
 
