@@ -24,16 +24,21 @@ Phases:
   4. the raycast march kernel K2 against its plain version on that grid,
      timed warm and cold, with the work its data asks for (sectors
      sampled, candidates walked a tile), its occupancy, and the time of
-     its slowest tile marched alone (--kernels-only then times K3 on a
-     synthetic fragment work list and P2 at the script's three sizes, and
-     stops);
+     its slowest tile marched alone; then tracking's two depth filters
+     (bilateral, pyrdown) against their plain versions, bit for bit, at
+     the three levels of the tracking pyramid (640x480, 320x240, 160x120),
+     timed warm and cold (--kernels-only then times K3 on a synthetic
+     fragment work list and P2 at the script's three sizes, and stops);
   5. the SLAM slice: slam_step over the 8-frame bench orbit at that
      configuration, pose-gated on frames 0-3 (the reference loses track
      from frame 4 too), then over the first half of that orbit, held on
      every frame to the JAX package's SLAM test gates against the synthetic
      truth; then 4 frames of that half-orbit with O3DTPU_INTEGRATE_V1 set,
      which integrate through K4. Each counted run sets the kernels' launch
-     counts to 0 just before it and reads them just after;
+     counts to 0 just before it and reads them just after; every frame's
+     track launches each depth filter as a 3-level odometry does (6
+     bilateral, 4 pyrdown), and so does each odometry run of the phases
+     below (make_fragments' pairs, the slam command's frames);
   6. per-stage times of the frame step (CUDA events, after warm-up), peak
      device memory;
   7. with --profile: torch.profiler over the steady frame step (device
@@ -160,7 +165,8 @@ Phases:
      blocks), counted like phase 5: its JSON line gated on bench.py's keys,
      finite positive rates, the raycast accuracy keys (median under a
      voxel, in-range misses under 0.08), icp_band_shortfall against phase
-     12's band reading, and K1 and K2 launched (no other kernel); the
+     12's band reading, and K1, K2 and the depth filters launched (no
+     other kernel); the
      median CUDA-event time of each call the sections make, and the SLAM
      run's pose against the truth step by step (gated on the first pass's
      frames 0-3), logged beside it; then `python -m
@@ -214,6 +220,15 @@ K3_BYTES_VOXEL = 28  # read tsdf_new, wn, cnew, tw, colour; write tw, colour
 # package's own bars (weight mismatch < 1e-6, tsdf 1e-3, colour 2/255 at
 # q99.9) are the outer limit
 BIT_TOL = dict(weight_mismatch=0.0, max_abs_dtsdf=0.0, max_abs_dcolor=0.0)
+# Tracking's depth filters (csrc/depth_filters.cu) likewise: no pixel differs
+DF_TOL = dict(mismatch=0, max_abs_err=0.0)
+# their float32 operations a tap, counted as above with an expf as one: the
+# bilateral filter's 10 (two expf), the pyrdown's 7; one division a pixel
+DF_OPS_TAP = {"bilateral_depth": 10, "pyrdown_depth": 7}
+# their launches in one 3-level odometry at stride 1 (slam_step's track,
+# make_fragments' pairs): a bilateral filter of source and target at each
+# level, two pyrdowns for each of the two depth pyramids
+DF_PER_ODOMETRY = {"bilateral_depth": 6, "pyrdown_depth": 4}
 # K2 likewise: every ray hits or misses as in the plain version, at the same
 # depth; the JAX package's bars (median error under a voxel, in-range miss
 # under 0.08) are the outer limit
@@ -348,6 +363,20 @@ def check_bit_parity(name: str, par: dict) -> None:
         check(par[k] <= bar, f"{name} {k} {par[k]} > {bar}: {par}")
 
 
+def check_depth_filters(launches: dict, n_odometry, what: str) -> int:
+    """Hold the depth filters' launches to DF_PER_ODOMETRY for each of
+    `n_odometry` 3-level odometry runs (None: one or more, as many as the
+    pyrdown's count says). Returns that number."""
+    if n_odometry is None:
+        n_odometry = launches["pyrdown_depth"] // DF_PER_ODOMETRY["pyrdown_depth"]
+        check(n_odometry > 0, f"{what}: the depth filters launched {launches}")
+    want = {n: c * n_odometry for n, c in DF_PER_ODOMETRY.items()}
+    got = {n: launches[n] for n in DF_PER_ODOMETRY}
+    check(got == want, f"{what}: depth filter launches {got}, {want} for {n_odometry} "
+          f"odometry runs {launches}")
+    return n_odometry
+
+
 class MemorySequence:
     """What make_fragments reads: intrinsic, len and read_frame(i)."""
 
@@ -395,11 +424,13 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     originals = {name: getattr(mod, name) for name, mod in spied.items()}
     inside_ms = {name: 0.0 for name in spied}
     graphs_in = []
+    n_pairs = [0]
 
     def timed(name):
         def run(*a, **kw):
             if name == "global_optimization":
                 graphs_in.append((a, kw))
+            n_pairs[0] += name == "_odometry_pair"
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = originals[name](*a, **kw)
@@ -431,6 +462,7 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     check(launches["integrate_blocks_v2"] == 0 and launches["integrate_blocks_v1"] == 0,
           f"the 8^3 fragment grid takes K3 only {launches}")
     check(all(launches[n] == 0 for n in PROBE_KERNELS), f"make_fragments runs no probe {launches}")
+    check_depth_filters(launches, n_pairs[0], "make_fragments' odometry pairs")
 
     json_path = os.path.join(out_dir, "fragments", "fragment_000.json")
     check(paths == [os.path.join(out_dir, "fragments", "fragment_000.ply")]
@@ -600,6 +632,60 @@ def kernels_only_k3_p2(dev) -> None:
     for R, s_chunk in p2.CONFIGS:
         inputs = p2.make_inputs(R, p2.n_indices(s_chunk), gen, dev)
         log(f"[k] P2 {p2_row(p2, R, s_chunk, *inputs)}")
+
+
+def depth_filter_times(dev) -> dict:
+    """Tracking's depth filters at the shapes the main path gives them: the
+    three levels of the tracking pyramid of a 640x480 frame of the bench
+    orbit (the pyrdown's own output each level down). At each shape each
+    kernel is held bit for bit against its plain version on the card, then
+    timed warm (back-to-back launches) and cold (L2 flushed), beside one
+    reading of the plain version and the kernel's bound by the bytes it
+    must move (each input pixel read once, each output pixel written once)
+    and its float32 operations (DF_OPS_TAP). Returns, by kernel, its row at
+    each shape under "WxH" and the 640x480 row's figures at its top."""
+    import torch
+
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+    from open3d_tpu_torch.ops.kernels import depth_filters as df
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
+
+    intr = PinholeCameraIntrinsic.prime_sense_default()
+    levels = [synthetic.render_sequence(1, intrinsic=intr, span=0.1, device=dev)[0][0].contiguous()]
+    for _ in range(2):
+        levels.append(df.pyrdown_depth_plain(levels[-1]))
+    out = {}
+    for name, fn, plain, taps in (("bilateral_depth", df.bilateral_depth, df.bilateral_depth_plain, 25),
+                                  ("pyrdown_depth", df.pyrdown_depth, df.pyrdown_depth_plain, 25)):
+        rows = {}
+        for d in levels:
+            got, want = fn(d), plain(d)
+            torch.cuda.synchronize()
+            H, W = d.shape
+            shape = f"{W}x{H}"
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{name} kernel bit parity at {shape}")
+            par = {"mismatch": int((got != want).sum()),
+                   "max_abs_err": float((got - want).abs().max())}
+            row = {"parity": par}
+            for key, timer, reps in (("ms", device_ms, 200), ("cold_ms", cold_ms, 20)):
+                row[key], row[key.replace("ms", "spread_ms")] = median_of(
+                    lambda: timer(lambda: fn(d), reps=reps))
+            row["plain_ms"] = device_ms(lambda: plain(d), reps=5)
+            n_in, n_out = d.numel(), got.numel()
+            n_ops = n_out * (DF_OPS_TAP[name] * taps + 1)
+            row["bytes"], row["ops"] = 4 * (n_in + n_out), n_ops
+            row["bound_ms"], row["bound_by"] = bound(4 * (n_in + n_out), n_ops)
+            log(f"[4] depth filter {name} {shape} {row}")
+            rows[shape] = row
+        top = rows["640x480"]
+        out[name] = {**{k: top[k] for k in ("ms", "spread_ms", "cold_ms", "cold_spread_ms",
+                                            "plain_ms", "bound_ms", "bound_by")},
+                     "parity": {k: max(r["parity"][k] for r in rows.values())
+                                for k in DF_TOL},
+                     "by_shape": rows}
+    return out
 
 
 def probe_library_call(probe, inputs):
@@ -872,8 +958,10 @@ def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launc
     launches = launch_counts()
     check(launches["march_tiles"] == n and launches["integrate_blocks_v2"] == n,
           f"SLAM with normals raycasts through K2 and integrates through K1 {launches}")
+    check_depth_filters(launches, n, "SLAM with normals")
     check(all(c == 0 for k, c in launches.items()
-              if k not in ("march_tiles", "integrate_blocks_v2")), f"only K1 and K2 {launches}")
+              if k not in ("march_tiles", "integrate_blocks_v2", *DF_PER_ODOMETRY)),
+          f"only K1, K2 and the depth filters {launches}")
     slam = {"max_rot_err": max(f["rot"] for f in on), "max_trans_err": max(f["trans"] for f in on),
             "launches": launches, "frames": []}
     for f in on:
@@ -1434,11 +1522,13 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
     inside_ms = {name: {} for name in stages}  # each stage's time by the spied calls in it
     current = [None]
     icp_calls, ransac_calls = [], []
+    n_pairs = [0]
 
     def timed(name):
         def run(*a, **kw):
             if name in stages:
                 current[0] = name
+            n_pairs[0] += name == "_odometry_pair"
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = originals[name](*a, **kw)
@@ -1499,6 +1589,7 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
     check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
     check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
+    check_depth_filters(launches, n_pairs[0], "run_system's odometry pairs")
     check(len(k1_args) == 1, f"K1 reached scene frame {k1_frame} ({k1_calls[0]} calls)")
     k1_scene = scene_k1_parity(vbg, k1_args.pop(), k1_frame)
     torch.cuda.empty_cache()
@@ -2832,6 +2923,7 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
     check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
     check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
+    check_depth_filters(launches, None, "run_system(mesh=...)'s odometry")
     check(cap.kept is not None, f"K3 reached call {k3_call} ({cap.calls} calls)")
     traj_res, edges = trajectory_against_truth(traj, graph, extr, rcfg.fragment_size, rc, lie)
     log(f"[14] trajectory {traj_res}; scene edges against the truth {edges}")
@@ -2932,6 +3024,7 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
           "the slam command wrote trajectory.log and mesh.ply")
     check(slam_launches["integrate_blocks_v2"] >= slam_frames
           and slam_launches["march_tiles"] >= slam_frames, f"K1 and K2 each frame {slam_launches}")
+    check_depth_filters(slam_launches, slam_times.calls["slam_step"], "the slam command's track")
     cli_poses = rio.read_trajectory_log(os.path.join(slam_out, "trajectory.log"))
     cfg = dense_slam.SLAMConfig()
     model = dense_slam.create_model(cfg, device=dev)
@@ -3648,9 +3741,11 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
           f"bench raycast accuracy within a voxel, misses under 0.08 {ex}")
     check(ex["icp_band_shortfall"] == band_shortfall,
           f"bench icp_band_shortfall {ex['icp_band_shortfall']} = phase 12's {band_shortfall}")
-    check(launches["integrate_blocks_v2"] > 0 and launches["march_tiles"] > 0,
-          f"K1 and K2 launched in the suite {launches}")
-    check(all(c == 0 for k, c in launches.items() if k not in ("integrate_blocks_v2", "march_tiles")),
+    check(launches["integrate_blocks_v2"] > 0 and launches["march_tiles"] > 0
+          and all(launches[n] > 0 for n in DF_PER_ODOMETRY),
+          f"K1, K2 and the depth filters launched in the suite {launches}")
+    check(all(c == 0 for k, c in launches.items()
+              if k not in ("integrate_blocks_v2", "march_tiles", *DF_PER_ODOMETRY)),
           f"K3, K4 and P1-P3 not launched in the suite {launches}")
     check(len(poses) == len(order) and max(trans[:5]) < POSE_TOL and max(rot[:5]) < POSE_TOL,
           f"bench_slam pose within {POSE_TOL} of the truth on the first pass's frames 0-3 {trans} {rot}")
@@ -3758,6 +3853,7 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
     from open3d_tpu_torch.models import dense_slam
     from open3d_tpu_torch.ops.kernels import _build
+    from open3d_tpu_torch.ops.kernels import depth_filters as df
     from open3d_tpu_torch.ops.kernels import integrate as k4
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
@@ -3770,7 +3866,8 @@ def main(argv=None) -> int:
     wrappers = {"integrate_blocks_v2": k1.integrate_blocks_v2, "march_tiles": k2.march_tiles,
                 "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks,
                 "micro_primitives": p1.run_probe, "micro_gather": p2.gather,
-                "micro_raymarch": p3.march}
+                "micro_raymarch": p3.march, "bilateral_depth": df.bilateral_depth,
+                "pyrdown_depth": df.pyrdown_depth}
 
     def launch_counts() -> dict:
         return {n: f.launches for n, f in wrappers.items()}
@@ -3964,6 +4061,7 @@ def main(argv=None) -> int:
         f"bound {k2_bound_ms:.4f} ms by {k2_bound_by} ({k2_bytes} B, {k2_ops} flop, {stats})")
     del grid, ref, lists
     torch.cuda.empty_cache()
+    df_rows = depth_filter_times(dev)
     if opts.kernels_only:
         kernels_only_k3_p2(dev)
         return 0
@@ -4002,6 +4100,8 @@ def main(argv=None) -> int:
     log(f"[5] launches {launches}, per frame {per_frame}")
     check(all(f["integrate_blocks_v2"] >= 1 and f["march_tiles"] >= 1 for f in per_frame),
           "K1 and K2 ran on every frame")
+    for f in per_frame:
+        check_depth_filters(f, 1, "slam_step's track, each frame")
     check(launches["fuse_blocks"] == 0 and launches["integrate_blocks_v1"] == 0,
           f"the 16^3 default path takes K1 only {launches}")
     check(all(launches[n] == 0 for n in PROBE_KERNELS), f"the SLAM slice runs no probe {launches}")
@@ -4045,6 +4145,8 @@ def main(argv=None) -> int:
     check(max(trans_v1) < POSE_TOL and max(rot_v1) < POSE_TOL, f"V1 pose error vs truth {v1_res}")
     check(all(f["integrate_blocks_v1"] >= 1 and f["integrate_blocks_v2"] == 0
               for f in per_frame_v1), f"K4 in place of K1 on every frame {per_frame_v1}")
+    for f in per_frame_v1:
+        check_depth_filters(f, 1, "the V1 run's track, each frame")
     check(all(launches_v1[n] == 0 for n in PROBE_KERNELS), f"the V1 run takes no probe {launches_v1}")
 
     # ---- 6. per-stage times (after the warm-up above), peak memory
@@ -4240,6 +4342,32 @@ def main(argv=None) -> int:
             "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
             "parity": k4_par, "tolerance": BIT_TOL,
         },
+        *({
+            "name": name, "route": "cuda",
+            "source": "open3d_tpu_torch/csrc/depth_filters.cu",
+            "replaces": f"open3d_tpu/geometry/image.py:{line}",
+            "launches": launches[name],
+            "launches_by_path": {"slam_step (phase 5)": launches[name],
+                                 "O3DTPU_INTEGRATE_V1 run (phase 5)": launches_v1[name],
+                                 "make_fragments (phase 8)": fr["launches"][name],
+                                 "SLAM with normals (phase 11)":
+                                     surface["slam_normals"]["launches"][name],
+                                 "run_system (phase 13)": scene["launches"][name],
+                                 "run_system(mesh=...) from disk (phase 14)":
+                                     disk["launches"][name],
+                                 "slam command (phase 14)":
+                                     disk["slam_command"]["launches"][name],
+                                 "post-processing (phase 15)": post["launches"][name],
+                                 PHASE16: toolbox["launches"][name],
+                                 PHASE17: mlio["launches"][name],
+                                 PHASE18: bench["launches"][name]},
+            "max_abs_err": df_rows[name]["parity"]["max_abs_err"],
+            **{k: df_rows[name][k] for k in ("ms", "cold_ms", "plain_ms", "spread_ms",
+                                             "cold_spread_ms", "bound_ms", "bound_by")},
+            "kernel_ms": df_rows[name]["ms"], "times": MEDIAN_TIMES, "library_ms": None,
+            "parity": df_rows[name]["parity"], "tolerance": DF_TOL,
+            "by_shape": df_rows[name]["by_shape"],
+        } for name, line in (("bilateral_depth", 70), ("pyrdown_depth", 124))),
         *probe_kernels,
     ]
     for k in probe_kernels:

@@ -3,7 +3,8 @@
 Depth is (H, W) float32 metres with 0 marking invalid pixels; colour is
 (H, W, 3) float32 in [0, 1]; intensity is (H, W) float32. Every filter is a
 sum of shifted copies, in the JAX package's order, so results agree to
-float32 rounding.
+float32 rounding. On the card the two depth filters of tracking are
+stencil kernels with the same bits (`ops/kernels/depth_filters.py`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.ops.kernels import depth_filters
+from open3d_tpu_torch.ops.kernels._plain import shift2d as _shift2d
 
 
 def clip_transform(depth_raw: torch.Tensor, depth_scale: float, depth_min: float, depth_max: float):
@@ -24,18 +27,6 @@ def rgb_to_gray(color: torch.Tensor) -> torch.Tensor:
     """(H, W, 3) -> (H, W) with the ITU-R BT.601 weights."""
     w = torch.tensor([0.299, 0.587, 0.114], dtype=color.dtype, device=color.device)
     return color @ w
-
-
-def _shift2d(img: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
-    """Shift an (H, W[, C]) image; vacated pixels get `fill`."""
-    out = torch.roll(img, shifts=(dy, dx), dims=(0, 1))
-    H, W = img.shape[0], img.shape[1]
-    yy = torch.arange(H, device=img.device)[:, None]
-    xx = torch.arange(W, device=img.device)[None, :]
-    valid = (yy >= dy) & (yy < H + dy) & (xx >= dx) & (xx < W + dx)
-    if img.ndim == 3:
-        valid = valid[..., None]
-    return torch.where(valid, out, torch.as_tensor(fill, dtype=img.dtype, device=img.device))
 
 
 def filter_gaussian(img: torch.Tensor, kernel_size: int = 3, sigma: float = 1.0) -> torch.Tensor:
@@ -69,24 +60,10 @@ def pyrdown(img: torch.Tensor) -> torch.Tensor:
 
 def filter_bilateral_depth(depth, kernel_size: int = 5, sigma_space: float = 2.0, sigma_depth: float = 0.05):
     """Edge-preserving bilateral filter for depth; invalid (0) pixels neither
-    contribute nor get filled."""
-    r = kernel_size // 2
-    num = torch.zeros_like(depth)
-    den = torch.zeros_like(depth)
-    inv2ss = 1.0 / (2.0 * sigma_space * sigma_space)
-    inv2sd = 1.0 / (2.0 * sigma_depth * sigma_depth)
-    for dy in range(-r, r + 1):
-        for dx in range(-r, r + 1):
-            nb = _shift2d(depth, dy, dx, fill=0.0)
-            w_s = torch.exp(
-                torch.tensor(-(dy * dy + dx * dx) * inv2ss, dtype=torch.float32, device=depth.device)
-            )
-            diff = nb - depth
-            w = w_s * torch.exp(-(diff * diff) * inv2sd) * (nb > 0.0)
-            num = num + w * nb
-            den = den + w
-    out = num / torch.clamp(den, min=1e-8)
-    return torch.where(depth > 0.0, out, 0.0)
+    contribute nor get filled. One stencil kernel on the card
+    (`ops/kernels/depth_filters.py`), which takes an (H, W) float32 depth
+    (any layout: it is made contiguous here)."""
+    return depth_filters.bilateral_depth(depth.contiguous(), kernel_size, sigma_space, sigma_depth)
 
 
 def filter_sobel(img: torch.Tensor):
@@ -116,21 +93,10 @@ def erode_mask(mask: torch.Tensor, radius: int = 1) -> torch.Tensor:
 
 def pyrdown_depth(depth: torch.Tensor, diff_threshold: float = 0.07) -> torch.Tensor:
     """Depth-aware pyrdown: smooth only over valid neighbours within
-    `diff_threshold` of the centre, then 2x decimate."""
-    r = 2
-    x = torch.arange(-r, r + 1, dtype=torch.float32, device=depth.device)
-    k1 = torch.exp(-(x * x) / 2.0)
-    k1 = k1 / torch.sum(k1)
-    num = torch.zeros_like(depth)
-    den = torch.zeros_like(depth)
-    for i in range(5):
-        for j in range(5):
-            nb = _shift2d(depth, i - r, j - r, fill=0.0)
-            w = k1[i] * k1[j] * (nb > 0.0) * (torch.abs(nb - depth) < diff_threshold)
-            num = num + w * nb
-            den = den + w
-    smoothed = torch.where(depth > 0.0, num / torch.clamp(den, min=1e-8), 0.0)
-    return smoothed[::2, ::2].contiguous()
+    `diff_threshold` of the centre, then 2x decimate. One stencil kernel on
+    the card (`ops/kernels/depth_filters.py`), which takes an (H, W)
+    float32 depth (any layout: it is made contiguous here)."""
+    return depth_filters.pyrdown_depth(depth.contiguous(), diff_threshold)
 
 
 def colorize_depth(depth: torch.Tensor, depth_scale: float = 1.0, depth_min: float = 0.0,

@@ -169,6 +169,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_probe_ffma.restype = I
     lib.o3dt_probe_occupancy.argtypes = [I, I, P]  # family (0 bf16, 1 f32), N, int[4] out
     lib.o3dt_probe_occupancy.restype = I
+    lib.o3dt_bilateral_depth.argtypes = [
+        P, P, I, I, I,  # in, out, H, W, radius
+        ctypes.c_double, F,  # 1 / (2 sigma_space^2), 1 / (2 sigma_depth^2)
+        P,  # stream
+    ]
+    lib.o3dt_bilateral_depth.restype = I
+    lib.o3dt_pyrdown_depth.argtypes = [P, P, P, I, I, F, P]  # in, k5, out, H, W, diff_threshold
+    lib.o3dt_pyrdown_depth.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

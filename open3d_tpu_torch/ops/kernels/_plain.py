@@ -16,6 +16,18 @@ def fma(a, b, c) -> torch.Tensor:
     return (a * b + c).float()
 
 
+def shift2d(img: torch.Tensor, dy: int, dx: int, fill=0.0) -> torch.Tensor:
+    """Shift an (H, W[, C]) image; vacated pixels get `fill`."""
+    out = torch.roll(img, shifts=(dy, dx), dims=(0, 1))
+    H, W = img.shape[0], img.shape[1]
+    yy = torch.arange(H, device=img.device)[:, None]
+    xx = torch.arange(W, device=img.device)[None, :]
+    valid = (yy >= dy) & (yy < H + dy) & (xx >= dx) & (xx < W + dx)
+    if img.ndim == 3:
+        valid = valid[..., None]
+    return torch.where(valid, out, torch.as_tensor(fill, dtype=img.dtype, device=img.device))
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype, device, shape=None) -> None:
     """Raise unless `t` has the dtype, device, shape and contiguity a kernel takes."""
     if t.dtype != dtype:

@@ -25,6 +25,7 @@ from open3d_tpu_torch.geometry import image as tim
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic as TIntr
 from open3d_tpu_torch.geometry.rgbd import RGBDImage as TRGBD
 from open3d_tpu_torch.pipelines import odometry as todo
+from test_torch_depth_filters import BILATERAL_PARAMS, PYRDOWN_PARAMS, SIZES, holey_depth
 
 torch.set_num_threads(2)
 INTR = (160, 120, 131.25, 131.25, 79.5, 59.5)
@@ -74,6 +75,27 @@ def test_depth_filters(fn, noisy_depth):
         )
         return
     _close(getattr(jim, fn)(d), getattr(tim, fn)(_t(d)))
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("params", BILATERAL_PARAMS, ids=str)
+def test_bilateral_depth_at_other_sizes_and_parameters(size, params):
+    """Odd and tiny images, holes, a zero border and neighbours a few ulp
+    either side of the 0.05 m sigma, at other kernel sizes and sigmas."""
+    d = holey_depth(*size).numpy()
+    _close(jim.filter_bilateral_depth(jnp.asarray(d), **params),
+           tim.filter_bilateral_depth(_t(d), **params))
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("params", PYRDOWN_PARAMS, ids=str)
+def test_pyrdown_depth_at_other_sizes_and_thresholds(size, params):
+    """The same images, neighbours a few ulp either side of the 0.07 m
+    threshold, at other thresholds: ceil(H/2) x ceil(W/2) out."""
+    d = holey_depth(*size).numpy()
+    got = tim.pyrdown_depth(_t(d), **params)
+    assert tuple(got.shape) == ((size[0] + 1) // 2, (size[1] + 1) // 2)
+    _close(jim.pyrdown_depth(jnp.asarray(d), **params), got)
 
 
 def test_vertex_normal_maps_and_pyramids(noisy_depth):
