@@ -27,7 +27,10 @@ Phases:
      its slowest tile marched alone; then tracking's two depth filters
      (bilateral, pyrdown) against their plain versions, bit for bit, at
      the three levels of the tracking pyramid (640x480, 320x240, 160x120),
-     timed warm and cold (--kernels-only then times K3 on a synthetic
+     timed warm and cold; then the point-to-plane Gauss-Newton kernels
+     (sums, solve) at those levels against float64 sums of the plain rows
+     and a float64 solve, timed warm and cold, the whole iteration beside
+     the eager one it replaces (--kernels-only then times K3 on a synthetic
      fragment work list and P2 at the script's three sizes, and stops);
   5. the SLAM slice: slam_step over the 8-frame bench orbit at that
      configuration, pose-gated on frames 0-3 (the reference loses track
@@ -38,7 +41,12 @@ Phases:
      counts to 0 just before it and reads them just after; every frame's
      track launches each depth filter as a 3-level odometry does (6
      bilateral, 4 pyrdown), and so does each odometry run of the phases
-     below (make_fragments' pairs, the slam command's frames);
+     below (make_fragments' pairs, the slam command's frames); every
+     Gauss-Newton iteration of a point-to-plane odometry (SLAM's track,
+     here and in phases 11, 14 and 18) launches the sums and the solve
+     kernel, as the program's recorder counts them, and its final metrics
+     the sums once more; the hybrid odometry of phases 8, 13, 14 and 18
+     launches neither;
   6. per-stage times of the frame step (CUDA events, after warm-up), peak
      device memory;
   7. with --profile: torch.profiler over the steady frame step (device
@@ -229,6 +237,17 @@ DF_OPS_TAP = {"bilateral_depth": 10, "pyrdown_depth": 7}
 # make_fragments' pairs): a bilateral filter of source and target at each
 # level, two pyrdowns for each of the two depth pyramids
 DF_PER_ODOMETRY = {"bilateral_depth": 6, "pyrdown_depth": 4}
+# The point-to-plane Gauss-Newton kernels (csrc/point_to_plane.cu), by their
+# wrappers' counts: two launches (sums, solve) an iteration of `iterate`,
+# one (sums) an odometry's final metrics in `residual_sums`
+GN_LAUNCHES = {"p2p_iterate": 2, "p2p_residual_sums": 1}
+# their bars: the sums within 1e-5 of their terms' magnitudes' sum of the
+# float64 sums of the plain rows, the valid count exact; the solve's pose
+# within 2 float32 ulp at 1 of the float64 solve_gn_6x6 + se3_exp
+GN_TOL = dict(sums_rel_err=1e-5, count_mismatch=0, pose_abs_err=2.4e-7)
+# their float32 operations a pixel whose row is used: the transform 18, the
+# projection 7, |n|^2 5, r 8, the weight 3, J 9, J w 6, the 28 sums 56
+GN_OPS_PIXEL = 112
 # K2 likewise: every ray hits or misses as in the plain version, at the same
 # depth; the JAX package's bars (median error under a voxel, in-range miss
 # under 0.08) are the outer limit
@@ -377,6 +396,56 @@ def check_depth_filters(launches: dict, n_odometry, what: str) -> int:
     return n_odometry
 
 
+class Recorded:
+    """The program's recorder (utils/timer.py) on inside the block, emptied
+    before it; `counts` holds its counters after the block."""
+
+    def __enter__(self):
+        from open3d_tpu_torch.utils import timer as tm
+
+        tm.disable()
+        tm.drain()
+        tm.enable()
+        self.counts = None
+        return self
+
+    def __exit__(self, *exc):
+        from open3d_tpu_torch.utils import timer as tm
+
+        tm.disable()
+        if exc[0] is None:
+            self.counts = tm.drain()[1]
+        return False
+
+
+def check_gn_kernels(launches: dict, counts, n_odometry: int, what: str) -> int:
+    """Hold the point-to-plane kernels' launches to GN_LAUNCHES: two for each
+    Gauss-Newton iteration the recorder's `counts` say ran them
+    (`odometry.gn_kernel_iterations`, every iteration of a point-to-plane
+    odometry on the card), one for each of the `n_odometry` point-to-plane
+    odometries' final metrics. A path of hybrid odometry alone (n_odometry
+    0; counts None where the recorder was off) launches neither. Returns
+    the kernel iterations."""
+    its = 0 if counts is None else counts.get("odometry.gn_kernel_iterations", 0)
+    if n_odometry:
+        check(its > 0 and its == counts.get("odometry.gn_iterations"),
+              f"{what}: every Gauss-Newton iteration ran the kernels {counts}")
+    else:
+        check(its == 0, f"{what}: no point-to-plane odometry, yet kernel iterations {counts}")
+    got = {n: launches[n] for n in GN_LAUNCHES}
+    want = {"p2p_iterate": GN_LAUNCHES["p2p_iterate"] * its,
+            "p2p_residual_sums": GN_LAUNCHES["p2p_residual_sums"] * n_odometry}
+    check(got == want, f"{what}: Gauss-Newton kernel launches {got}, {want} for {its} kernel "
+          f"iterations and {n_odometry} odometries {launches}")
+    return its
+
+
+def gn_kernel_launches(launches: dict) -> dict:
+    """The launches of each Gauss-Newton kernel from its wrappers' counts."""
+    its = launches["p2p_iterate"] // GN_LAUNCHES["p2p_iterate"]
+    return {"p2p_sums": its + launches["p2p_residual_sums"], "p2p_solve": its}
+
+
 class MemorySequence:
     """What make_fragments reads: intrinsic, len and read_frame(i)."""
 
@@ -463,6 +532,7 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
           f"the 8^3 fragment grid takes K3 only {launches}")
     check(all(launches[n] == 0 for n in PROBE_KERNELS), f"make_fragments runs no probe {launches}")
     check_depth_filters(launches, n_pairs[0], "make_fragments' odometry pairs")
+    check_gn_kernels(launches, None, 0, "make_fragments' hybrid odometry")
 
     json_path = os.path.join(out_dir, "fragments", "fragment_000.json")
     check(paths == [os.path.join(out_dir, "fragments", "fragment_000.ply")]
@@ -685,6 +755,135 @@ def depth_filter_times(dev) -> dict:
                      "parity": {k: max(r["parity"][k] for r in rows.values())
                                 for k in DF_TOL},
                      "by_shape": rows}
+    return out
+
+
+def kernel_order_transform(T, pts):
+    """lie.transform_points with each coordinate formed as the sums kernel
+    forms it, ((R_i0 p0 + R_i1 p1) + R_i2 p2) + t_i, every operation rounded
+    alone."""
+    import torch
+
+    return torch.stack([((T[i, 0] * pts[:, 0] + T[i, 1] * pts[:, 1]) + T[i, 2] * pts[:, 2])
+                        + T[i, 3] for i in range(3)], dim=-1)
+
+
+def gn_kernel_times(dev) -> dict:
+    """The point-to-plane Gauss-Newton kernels at the shapes tracking gives
+    them: the three levels of a tracked 640x480 pair of the bench orbit
+    (frame 1 against frame 0, bilateral-filtered, their vertex and normal
+    maps as the odometry builds them), at the pose one iteration from I.
+    At each shape the sums are held against float64 sums of the plain rows
+    (P formed in the kernel's order, so both pick the same pixels) and the
+    solve against the float64 solve_gn_6x6 + se3_exp of the same sums; then
+    each kernel is timed warm and cold, and the whole iteration warm and
+    on the host's clock (synchronised) beside the eager iteration
+    (iterate_plain on the card), with each kernel's bound by its bytes and
+    operations. Returns, by kernel, its row at each shape under "WxH" and
+    the 640x480 row's figures at its top."""
+    import torch
+
+    from open3d_tpu_torch.core import lie, linalg
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import image as im
+    from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+    from open3d_tpu_torch.ops.kernels import _build
+    from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
+
+    intr = PinholeCameraIntrinsic.prime_sense_default()
+    depths = synthetic.render_sequence(2, intrinsic=intr, span=0.1, device=dev)[0]
+    src_pyr = im.build_depth_pyramid(depths[1].contiguous(), 3)
+    tgt_pyr = im.build_depth_pyramid(depths[0].contiguous(), 3)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sync = torch.cuda.synchronize
+    rows = {"p2p_sums": {}, "p2p_solve": {}}
+    for lvl in range(3):
+        il = intr.scaled(0.5**lvl)
+        sv = im.create_vertex_map(im.filter_bilateral_depth(src_pyr[lvl]), il).reshape(-1, 3)
+        tv = im.create_vertex_map(im.filter_bilateral_depth(tgt_pyr[lvl]), il)
+        lv = p2p.Level(sv, sv[:, 2] > 0, torch.cat([tv, im.create_normal_map(tv)], dim=-1), il,
+                       0.07, 0.05)
+        T = torch.eye(4, device=dev)
+        p2p.iterate(lv, T)
+        p2p.residual_sums(lv, T)
+        sync()
+        part = lv.partials.clone()
+        got = part[:, :28].double().sum(0)
+        count = int(part.view(torch.int32)[:, p2p.COUNT].sum())
+        keep = lie.transform_points
+        lie.transform_points = kernel_order_transform
+        try:
+            J, r, w, valid = p2p.rows_plain(sv, lv.src_valid, lv.tgt_vtx_nrm, T, il, 0.07, 0.05)
+            P = kernel_order_transform(T, sv)
+            gathered = int((lv.src_valid & p2p.project(P, il)[2]).sum())
+        finally:
+            lie.transform_points = keep
+        J, r, w = J.double(), r.double(), w.double()
+        Jw = J * w[:, None]
+        terms = [Jw[:, j] * J[:, k] for j in range(6) for k in range(j, 6)]
+        terms = torch.stack(terms + [Jw[:, j] * r for j in range(6)]
+                            + [torch.where(w > 0, r * r, 0.0)], dim=-1)
+        rel = float(((got - terms.sum(0)).abs() / terms.abs().sum(0).clamp(min=1e-300)).max())
+        sums_par = {"sums_rel_err": rel, "count_mismatch": abs(count - int(valid.sum()))}
+        # the solve on the same sums, from a copy of T, against float64
+        s64 = got
+        JtJ = torch.zeros((6, 6), dtype=torch.float64, device=dev)
+        iu = torch.triu_indices(6, 6, device=dev)
+        JtJ[iu[0], iu[1]] = s64[:21]
+        JtJ[iu[1], iu[0]] = s64[:21]
+        want_T = lie.se3_exp(linalg.solve_gn_6x6(JtJ, s64[21:27])) @ T.double()
+        T2 = T.clone()
+        p2p._launch_solve(lv, T2, lib, stream)
+        sync()
+        solve_par = {"pose_abs_err": float((T2.double() - want_T).abs().max()),
+                     "rmse_rel_err": abs(float(lv.rmse) / math.sqrt(
+                         float(s64[27]) / max(count, 1)) - 1.0) if count else 0.0}
+        H, W = tv.shape[:2]
+        shape = f"{W}x{H}"
+        check(all(sums_par[k] <= GN_TOL[k] for k in sums_par),
+              f"p2p sums against float64 at {shape}: {sums_par}")
+        check(solve_par["pose_abs_err"] <= GN_TOL["pose_abs_err"],
+              f"p2p solve against float64 at {shape}: {solve_par}")
+        scratch = T.clone()
+        sums_row = {"parity": sums_par, "valid": count, "gathered": gathered,
+                    "blocks": lv.n_blocks}
+        solve_row = {"parity": solve_par}
+        for row, fn in ((sums_row, lambda: p2p._launch_sums(lv, T, lib, stream)),
+                        (solve_row, lambda: p2p._launch_solve(lv, scratch, lib, stream))):
+            for key, timer, reps in (("ms", device_ms, 200), ("cold_ms", cold_ms, 20)):
+                row[key], row[key.replace("ms", "spread_ms")] = median_of(
+                    lambda: timer(fn, reps=reps))
+        n_in = sv.shape[0]
+        sums_bytes = 13 * n_in + 24 * gathered + 128 * lv.n_blocks + 48
+        sums_row["bytes"], sums_row["ops"] = sums_bytes, GN_OPS_PIXEL * count
+        sums_row["bound_ms"], sums_row["bound_by"] = bound(sums_bytes, GN_OPS_PIXEL * count)
+        solve_bytes = 128 * lv.n_blocks + 64 + 4
+        solve_ops = 29 * lv.n_blocks + 500  # the sums, then ~500 for the solve and the product
+        solve_row["bytes"], solve_row["ops"] = solve_bytes, solve_ops
+        solve_row["bound_ms"], solve_row["bound_by"] = bound(solve_bytes, solve_ops)
+        # the whole iteration against the eager one it replaces, on the card
+        iteration = {"ms": device_ms(lambda: p2p.iterate(lv, scratch), reps=200),
+                     "plain_ms": device_ms(lambda: p2p.iterate_plain(lv, scratch), reps=5),
+                     "host_ms": statistics.median(
+                         host_ms(lambda: p2p.iterate(lv, scratch), sync)[1] for _ in range(20)),
+                     "plain_host_ms": statistics.median(
+                         host_ms(lambda: p2p.iterate_plain(lv, scratch), sync)[1]
+                         for _ in range(5))}
+        sums_row["plain_ms"] = solve_row["plain_ms"] = iteration["plain_ms"]
+        sums_row["iteration"] = iteration
+        for name, row in (("p2p_sums", sums_row), ("p2p_solve", solve_row)):
+            log(f"[4] Gauss-Newton kernel {name} {shape} {row}")
+            rows[name][shape] = row
+    out = {}
+    for name, by_shape in rows.items():
+        top = by_shape["640x480"]
+        out[name] = {**{k: top[k] for k in ("ms", "spread_ms", "cold_ms", "cold_spread_ms",
+                                            "plain_ms", "bound_ms", "bound_by")},
+                     "parity": {k: max(r["parity"][k] for r in by_shape.values())
+                                for k in top["parity"]},
+                     "by_shape": by_shape}
     return out
 
 
@@ -953,15 +1152,17 @@ def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launc
 
     _, off = run(cfg)
     zero_counts()
-    model, on = run(dataclasses.replace(cfg, raycast_normals=True))
+    with Recorded() as rec:
+        model, on = run(dataclasses.replace(cfg, raycast_normals=True))
     torch.cuda.synchronize()
     launches = launch_counts()
     check(launches["march_tiles"] == n and launches["integrate_blocks_v2"] == n,
           f"SLAM with normals raycasts through K2 and integrates through K1 {launches}")
     check_depth_filters(launches, n, "SLAM with normals")
+    check_gn_kernels(launches, rec.counts, n, "SLAM with normals")
     check(all(c == 0 for k, c in launches.items()
-              if k not in ("march_tiles", "integrate_blocks_v2", *DF_PER_ODOMETRY)),
-          f"only K1, K2 and the depth filters {launches}")
+              if k not in ("march_tiles", "integrate_blocks_v2", *DF_PER_ODOMETRY, *GN_LAUNCHES)),
+          f"only K1, K2, the depth filters and the Gauss-Newton kernels {launches}")
     slam = {"max_rot_err": max(f["rot"] for f in on), "max_trans_err": max(f["trans"] for f in on),
             "launches": launches, "frames": []}
     for f in on:
@@ -1590,6 +1791,7 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
     check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
     check_depth_filters(launches, n_pairs[0], "run_system's odometry pairs")
+    check_gn_kernels(launches, None, 0, "run_system's hybrid odometry")
     check(len(k1_args) == 1, f"K1 reached scene frame {k1_frame} ({k1_calls[0]} calls)")
     k1_scene = scene_k1_parity(vbg, k1_args.pop(), k1_frame)
     torch.cuda.empty_cache()
@@ -2924,6 +3126,7 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
     check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
     check_depth_filters(launches, None, "run_system(mesh=...)'s odometry")
+    check_gn_kernels(launches, None, 0, "run_system(mesh=...)'s hybrid odometry")
     check(cap.kept is not None, f"K3 reached call {k3_call} ({cap.calls} calls)")
     traj_res, edges = trajectory_against_truth(traj, graph, extr, rcfg.fragment_size, rc, lie)
     log(f"[14] trajectory {traj_res}; scene edges against the truth {edges}")
@@ -3015,7 +3218,8 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
                     "write_triangle_mesh": rio}, sync) as slam_times:
         zero_counts()
         t0 = time.perf_counter()
-        cli.main(argv)
+        with Recorded() as rec:
+            cli.main(argv)
         sync()
         slam_ms = (time.perf_counter() - t0) * 1e3
         slam_launches = launch_counts()
@@ -3025,6 +3229,8 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
     check(slam_launches["integrate_blocks_v2"] >= slam_frames
           and slam_launches["march_tiles"] >= slam_frames, f"K1 and K2 each frame {slam_launches}")
     check_depth_filters(slam_launches, slam_times.calls["slam_step"], "the slam command's track")
+    check_gn_kernels(slam_launches, rec.counts, slam_times.calls["slam_step"],
+                     "the slam command's track")
     cli_poses = rio.read_trajectory_log(os.path.join(slam_out, "trajectory.log"))
     cfg = dense_slam.SLAMConfig()
     model = dense_slam.create_model(cfg, device=dev)
@@ -3669,6 +3875,7 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
              (gr, "registration_ransac_based_on_feature_matching"))
     state = {"section": None}
     events = {}  # (section, call) -> [(start, end)]
+    by_section = {}  # section -> (its launches, the recorder's counters)
     poses = []  # the pose after each step of the full-resolution SLAM run
 
     def in_section(name, fn):
@@ -3677,7 +3884,16 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
                                 else name)
             if name == "bench_integration":
                 state["extr"] = a[3]
-            return fn(*a, **kw)
+            before = launch_counts()
+            with Recorded() as rec:
+                out = fn(*a, **kw)
+            sec_launches, sec_counts = by_section.get(state["section"], ({}, {}))
+            for k, c in launch_counts().items():
+                sec_launches[k] = sec_launches.get(k, 0) + c - before[k]
+            for k, c in rec.counts.items():
+                sec_counts[k] = sec_counts.get(k, 0) + c
+            by_section[state["section"]] = (sec_launches, sec_counts)
+            return out
         return run
 
     def timed(name, fn):
@@ -3745,8 +3961,13 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
           and all(launches[n] > 0 for n in DF_PER_ODOMETRY),
           f"K1, K2 and the depth filters launched in the suite {launches}")
     check(all(c == 0 for k, c in launches.items()
-              if k not in ("integrate_blocks_v2", "march_tiles", *DF_PER_ODOMETRY)),
+              if k not in ("integrate_blocks_v2", "march_tiles", *DF_PER_ODOMETRY, *GN_LAUNCHES)),
           f"K3, K4 and P1-P3 not launched in the suite {launches}")
+    for sec, (sec_launches, sec_counts) in by_section.items():
+        check_gn_kernels(sec_launches, sec_counts, len(events.get((sec, "slam_step"), [])),
+                         f"bench section {sec}")
+    check(any(v[0]["p2p_iterate"] for v in by_section.values()),
+          f"the suite's SLAM ran the Gauss-Newton kernels {by_section}")
     check(len(poses) == len(order) and max(trans[:5]) < POSE_TOL and max(rot[:5]) < POSE_TOL,
           f"bench_slam pose within {POSE_TOL} of the truth on the first pass's frames 0-3 {trans} {rot}")
 
@@ -3770,6 +3991,7 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
     phase_s = time.perf_counter() - t_start
     log(f"[18] bench phase {phase_s:.1f} s")
     return {"line": out, "small_line": small, "launches": launches, "per_call_ms": medians,
+            "launches_by_section": {k: v[0] for k, v in by_section.items()},
             "slam_trans_err": trans, "slam_rot_err": rot, "suite_s": suite_s, "command_s": cli_s,
             "phase_s": phase_s}
 
@@ -3859,6 +4081,7 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
     from open3d_tpu_torch.ops.kernels import micro_primitives as p1
     from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
+    from open3d_tpu_torch.ops.kernels import point_to_plane as gn
     from open3d_tpu_torch.ops.kernels import raycast as k2
     from open3d_tpu_torch.ops.kernels import tsdf as k3
     from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
@@ -3867,7 +4090,8 @@ def main(argv=None) -> int:
                 "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks,
                 "micro_primitives": p1.run_probe, "micro_gather": p2.gather,
                 "micro_raymarch": p3.march, "bilateral_depth": df.bilateral_depth,
-                "pyrdown_depth": df.pyrdown_depth}
+                "pyrdown_depth": df.pyrdown_depth, "p2p_iterate": gn.iterate,
+                "p2p_residual_sums": gn.residual_sums}
 
     def launch_counts() -> dict:
         return {n: f.launches for n, f in wrappers.items()}
@@ -4062,6 +4286,7 @@ def main(argv=None) -> int:
     del grid, ref, lists
     torch.cuda.empty_cache()
     df_rows = depth_filter_times(dev)
+    gn_rows = gn_kernel_times(dev)
     if opts.kernels_only:
         kernels_only_k3_p2(dev)
         return 0
@@ -4073,15 +4298,20 @@ def main(argv=None) -> int:
     # So the bench orbit is gated on frames 0-3, and the run whose launches
     # are counted takes the first half of that orbit (span 0.4), gated on
     # every frame.
+    gn_iterations = []  # Gauss-Newton kernel iterations a frame, over the slices
+
     def run_slice(depths, colors, extr):
         model = dense_slam.create_model(cfg, T_init=lie.invert_se3(extr[0]), device=dev)
         md = torch.zeros_like(depths[0])
         per_frame, rot, trans, res = [], [], [], None
         for i in range(depths.shape[0]):
             before = launch_counts()
-            res = dense_slam.slam_step(model, depths[i], colors[i], md, intr)
+            with Recorded() as rec:
+                res = dense_slam.slam_step(model, depths[i], colors[i], md, intr)
             model, md = res.model, res.raycast_depth
             per_frame.append({n: c - before[n] for n, c in launch_counts().items()})
+            gn_iterations.append(check_gn_kernels(per_frame[-1], rec.counts, 1,
+                                                  f"slam_step's track, frame {i}"))
             r, t = lie.pose_distance(model.T_frame_to_world, lie.invert_se3(extr[i]))
             rot.append(float(r))
             trans.append(float(t))
@@ -4368,6 +4598,31 @@ def main(argv=None) -> int:
             "parity": df_rows[name]["parity"], "tolerance": DF_TOL,
             "by_shape": df_rows[name]["by_shape"],
         } for name, line in (("bilateral_depth", 70), ("pyrdown_depth", 124))),
+        *({
+            "name": name, "route": "cuda",
+            "source": "open3d_tpu_torch/csrc/point_to_plane.cu",
+            "replaces": "open3d_tpu_torch/pipelines/odometry.py's eager point-to-plane iteration "
+                        "(open3d_tpu/pipelines/odometry.py:_gn_level, no Pallas kernel)",
+            "launches": gn_kernel_launches(launches)[name],
+            "launches_by_path": {path: gn_kernel_launches(counts)[name] for path, counts in (
+                ("slam_step (phase 5)", launches),
+                ("O3DTPU_INTEGRATE_V1 run (phase 5)", launches_v1),
+                ("make_fragments (phase 8)", fr["launches"]),
+                ("SLAM with normals (phase 11)", surface["slam_normals"]["launches"]),
+                ("run_system (phase 13)", scene["launches"]),
+                ("run_system(mesh=...) from disk (phase 14)", disk["launches"]),
+                ("slam command (phase 14)", disk["slam_command"]["launches"]),
+                ("post-processing (phase 15)", post["launches"]),
+                (PHASE16, toolbox["launches"]), (PHASE17, mlio["launches"]),
+                (PHASE18, bench["launches"]))},
+            "gn_kernel_iterations_slam_step": sum(gn_iterations),
+            "max_abs_err": gn_rows[name]["parity"].get("pose_abs_err", 0.0),
+            **{k: gn_rows[name][k] for k in ("ms", "cold_ms", "plain_ms", "spread_ms",
+                                             "cold_spread_ms", "bound_ms", "bound_by")},
+            "kernel_ms": gn_rows[name]["ms"], "times": MEDIAN_TIMES, "library_ms": None,
+            "parity": gn_rows[name]["parity"], "tolerance": GN_TOL,
+            "by_shape": gn_rows[name]["by_shape"],
+        } for name in ("p2p_sums", "p2p_solve")),
         *probe_kernels,
     ]
     for k in probe_kernels:

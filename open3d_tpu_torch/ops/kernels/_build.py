@@ -177,6 +177,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_bilateral_depth.restype = I
     lib.o3dt_pyrdown_depth.argtypes = [P, P, P, I, I, F, P]  # in, k5, out, H, W, diff_threshold
     lib.o3dt_pyrdown_depth.restype = I
+    lib.o3dt_p2p_blocks.argtypes = [I]  # source pixels
+    lib.o3dt_p2p_blocks.restype = I
+    lib.o3dt_p2p_sums.argtypes = [
+        P, P, P, P, P,  # src, src_valid, tgt rows, T, partials
+        I, I, I,  # n, target H, W
+        F, F, F, F,  # fx fy cx cy
+        F, F, F, F,  # width - 1, height - 1, outlier cut, Huber delta
+        P,  # stream
+    ]
+    lib.o3dt_p2p_sums.restype = I
+    lib.o3dt_p2p_solve.argtypes = [P, I, P, P, ctypes.c_double, P]  # partials, CTAs, T, rmse, damping
+    lib.o3dt_p2p_solve.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

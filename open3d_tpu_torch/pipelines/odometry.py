@@ -12,6 +12,12 @@ Each pass of the loop counts one in `odometry.gn_iterations`; the pyramid
 builds, each level and the final metrics are the spans `odometry.pyramid`,
 `odometry.level` (attribute `level`) and `odometry.final`.
 
+Point-to-plane runs its iteration through `ops/kernels/point_to_plane.py`:
+on CUDA tensors two kernel launches an iteration (each such pass also
+counts one in `odometry.gn_kernel_iterations`) and one for the final
+metrics, on CPU tensors the same steps in plain PyTorch. Intensity and
+hybrid run the eager loop `_gn_level`.
+
 JtJ is a float32 matmul: it assumes torch.backends.cuda.matmul.allow_tf32
 is False (PyTorch's default), as TF32 keeps only about three digits.
 """
@@ -28,7 +34,10 @@ from open3d_tpu_torch.core import lie, linalg
 from open3d_tpu_torch.geometry import image as im
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.rgbd import RGBDImage
-from open3d_tpu_torch.ops.kernels._plain import fma
+from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
+from open3d_tpu_torch.ops.kernels.point_to_plane import huber_weight as _huber_weight
+from open3d_tpu_torch.ops.kernels.point_to_plane import nearest_sample as _nearest_sample
+from open3d_tpu_torch.ops.kernels.point_to_plane import project as _project
 from open3d_tpu_torch.utils.timer import count, host_read, span
 
 POINT_TO_PLANE = "point_to_plane"
@@ -59,34 +68,6 @@ class OdometryResult:
     inlier_rmse: torch.Tensor  # () f32
 
 
-def _huber_weight(r, delta):
-    return delta / torch.clamp(torch.abs(r), min=delta)
-
-
-def _project(P, intr: PinholeCameraIntrinsic):
-    """Pixel coordinates of camera-frame points. The multiply-add rounds
-    once (`fma`), as XLA fuses it in the JAX package's jitted loop: at T = I
-    every sample lands on a pixel border, where the bilinear gradient jumps,
-    so the last bit of u and v picks the cell that the Jacobian comes from."""
-    z = P[..., 2]
-    zs = torch.clamp(z, min=1e-6)
-    u = fma(P[..., 0] / zs, intr.fx, intr.cx)
-    v = fma(P[..., 1] / zs, intr.fy, intr.cy)
-    inb = (z > 1e-4) & (u >= 0) & (u <= intr.width - 1) & (v >= 0) & (v <= intr.height - 1)
-    return u, v, inb
-
-
-def _nearest_sample(img, u, v):
-    """Nearest-pixel sample of an (H, W) or (H, W, C) image."""
-    H, W = img.shape[0], img.shape[1]
-    ui = torch.clamp(torch.round(u).to(torch.int64), 0, W - 1)
-    vi = torch.clamp(torch.round(v).to(torch.int64), 0, H - 1)
-    lin = vi * W + ui
-    if img.ndim == 3:
-        return img.reshape(H * W, -1)[lin]
-    return img.reshape(H * W)[lin]
-
-
 class _LevelData:
     """Per-pyramid-level maps, flattened to (HW, ...) rows. Target maps that
     one warp samples together are packed on the channel axis, so each
@@ -110,19 +91,6 @@ class _LevelData:
         )
         if tgt_inten is not None:
             self.tgt_depth_inten = torch.stack([self.tgt_depth, tgt_inten], dim=-1)
-
-
-def _rows_point_to_plane(ld: _LevelData, T, loss: OdometryLossParams):
-    P = lie.transform_points(T, ld.src_pts)
-    u, v, inb = _project(P, ld.intr)
-    qn = _nearest_sample(ld.tgt_vtx_nrm, u, v)
-    q, n = qn[:, :3], qn[:, 3:]
-    valid = ld.src_valid & inb & (q[:, 2] > 0) & (torch.sum(n * n, dim=-1) > 0.5)
-    r = torch.sum((P - q) * n, dim=-1)
-    valid = valid & (torch.abs(r) < loss.depth_outlier_trunc)
-    w = valid.to(torch.float32) * _huber_weight(r, loss.depth_huber_delta)
-    J = torch.cat([torch.linalg.cross(P, n, dim=-1), n], dim=-1)
-    return J, r, w, valid
 
 
 def _intensity_rows(ld: _LevelData, P, u, v, base_valid, loss):
@@ -189,7 +157,13 @@ def _rows_hybrid(ld: _LevelData, T, loss: OdometryLossParams):
     return J, r, w, valid
 
 
-_ROWS = {POINT_TO_PLANE: _rows_point_to_plane, INTENSITY: _rows_intensity, HYBRID: _rows_hybrid}
+_ROWS = {INTENSITY: _rows_intensity, HYBRID: _rows_hybrid}
+_METHODS = (POINT_TO_PLANE, INTENSITY, HYBRID)
+
+
+def _p2p_level(ld: _LevelData, loss: OdometryLossParams) -> p2p.Level:
+    return p2p.Level(ld.src_pts, ld.src_valid, ld.tgt_vtx_nrm, ld.intr,
+                     loss.depth_outlier_trunc, loss.depth_huber_delta)
 
 
 def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, loss):
@@ -206,6 +180,24 @@ def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, lo
         rmse = torch.sqrt(torch.sum(torch.where(w > 0, r * r, 0.0)) / n_in)
         # the host reads the RMSE: the loop's one sync per iteration
         rmse_h = host_read("odometry.rmse", rmse)
+        if it > 0 and abs(prev_rmse - rmse_h) < criteria.relative_rmse:
+            break
+        prev_rmse = rmse_h
+    return T
+
+
+def _gn_level_point_to_plane(ld: _LevelData, T, criteria: OdometryConvergenceCriteria, loss):
+    """`_gn_level` for point-to-plane: each pass is one `p2p.iterate`, which
+    updates T in place (the two kernels on a card, plain PyTorch on the
+    CPU); the same read of the RMSE and the same convergence rule."""
+    lv = _p2p_level(ld, loss)
+    on_card = T.is_cuda
+    prev_rmse = None
+    for it in range(criteria.max_iteration):
+        count("odometry.gn_iterations")
+        if on_card:
+            count("odometry.gn_kernel_iterations")
+        rmse_h = host_read("odometry.rmse", p2p.iterate(lv, T))
         if it > 0 and abs(prev_rmse - rmse_h) < criteria.relative_rmse:
             break
         prev_rmse = rmse_h
@@ -230,9 +222,8 @@ def rgbd_odometry_multi_scale(
     """Coarse-to-fine dense odometry. Depths are metric float32 with 0 as
     invalid; INTENSITY and HYBRID also read the colour (or intensity) images.
     Returns T with target_point ~= T @ source_point."""
-    if method not in _ROWS:
-        raise ValueError(f"unknown odometry method {method!r}; expected one of {sorted(_ROWS)}")
-    rows = _ROWS[method]
+    if method not in _METHODS:
+        raise ValueError(f"unknown odometry method {method!r}; expected one of {sorted(_METHODS)}")
     n_levels = len(criteria)
     dev = source.depth.device
     use_intensity = method in (INTENSITY, HYBRID)
@@ -245,10 +236,11 @@ def rgbd_odometry_multi_scale(
         )
         src_int_pyr = im.build_intensity_pyramid(source.color, n_levels) if use_intensity else None
         tgt_int_pyr = im.build_intensity_pyramid(target.color, n_levels) if use_intensity else None
+    # the function's own T: point-to-plane updates it in place
     T = (
         torch.eye(4, dtype=torch.float32, device=dev)
         if init is None
-        else init.to(dtype=torch.float32, device=dev)
+        else init.to(dtype=torch.float32, device=dev, copy=True)
     )
 
     for lvl in reversed(range(n_levels)):
@@ -266,7 +258,11 @@ def rgbd_odometry_multi_scale(
                 src_vtx, src_int_pyr[lvl] if use_intensity else None, tgt_vtx, tgt_nrm,
                 tgt_int_pyr[lvl] if use_intensity else None, intr_l,
             )
-            T = _gn_level(ld, T, rows, criteria[n_levels - 1 - lvl], loss)
+            crit = criteria[n_levels - 1 - lvl]
+            if method == POINT_TO_PLANE:
+                T = _gn_level_point_to_plane(ld, T, crit, loss)
+            else:
+                T = _gn_level(ld, T, _ROWS[method], crit, loss)
 
     # final metrics at the finest level
     with span("odometry.final"):
@@ -279,10 +275,14 @@ def rgbd_odometry_multi_scale(
             tgt_int_pyr[0] if use_intensity else None,
             intrinsic,
         )
-        _, r, w, valid = rows(ld, T, loss)
+        if method == POINT_TO_PLANE:
+            sum_r2, n_in = p2p.residual_sums(_p2p_level(ld, loss), T)
+        else:
+            _, r, w, valid = _ROWS[method](ld, T, loss)
+            sum_r2 = torch.sum(torch.where(w > 0, r * r, 0.0))
+            n_in = torch.sum(valid.to(torch.float32))
         n_src = torch.clamp(torch.sum(ld.src_valid.to(torch.float32)), min=1.0)
-        n_in = torch.sum(valid.to(torch.float32))
-        rmse = torch.sqrt(torch.sum(torch.where(w > 0, r * r, 0.0)) / torch.clamp(n_in, min=1.0))
+        rmse = torch.sqrt(sum_r2 / torch.clamp(n_in, min=1.0))
     return OdometryResult(transformation=T, fitness=n_in / n_src, inlier_rmse=rmse)
 
 

@@ -225,7 +225,8 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 def test_kernel_sources_present():
     names = sorted(p.name for p in _build.sources())
     assert names == ["common.cu", "depth_filters.cu", "integrate2.cu", "micro_gather.cu",
-                     "micro_primitives.cu", "micro_raymarch.cu", "raycast.cu", "tsdf.cu"]
+                     "micro_primitives.cu", "micro_raymarch.cu", "point_to_plane.cu", "raycast.cu",
+                     "tsdf.cu"]
     assert len(_build.source_hash()) == 16
 
 

@@ -23,7 +23,7 @@ from open3d_tpu_torch.core import hashmap as hm
 from open3d_tpu_torch.core import lie
 from open3d_tpu_torch.data import synthetic as syn
 from open3d_tpu_torch.models import dense_slam as ds
-from open3d_tpu_torch.pipelines import odometry as odom
+from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
 from open3d_tpu_torch.utils import timer as tm
 
 torch.set_num_threads(2)
@@ -81,24 +81,24 @@ def _run(frames, on: bool, tracked: bool):
 @pytest.fixture(scope="module")
 def runs(frames):
     """{(tracked, on): _run(...)}; the tracked run on also counts the
-    Gauss-Newton loop's passes by the row function's calls (one a pass, and
-    one a frame for the final metrics)."""
+    Gauss-Newton loop's passes by the point-to-plane row function's calls
+    (one a pass, and one a frame for the final metrics)."""
     out = {}
     for tracked in (True, False):
         for on in (False, True):
             tm.disable()
             tm.drain()
             calls = []
-            rows = odom._ROWS[odom.POINT_TO_PLANE]
+            rows = p2p.rows_plain
             if tracked and on:
                 def counted(*a, **k):
                     calls.append(1)
                     return rows(*a, **k)
-                odom._ROWS[odom.POINT_TO_PLANE] = counted
+                p2p.rows_plain = counted
             try:
                 out[tracked, on] = _run(frames, on, tracked) + (len(calls),)
             finally:
-                odom._ROWS[odom.POINT_TO_PLANE] = rows
+                p2p.rows_plain = rows
     tm.disable()
     tm.drain()
     return out
