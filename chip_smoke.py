@@ -38,13 +38,15 @@ Phases:
      every frame to the JAX package's SLAM test gates against the synthetic
      truth; then 4 frames of that half-orbit with O3DTPU_INTEGRATE_V1 set,
      which integrate through K4. Each counted run sets the kernels' launch
-     counts to 0 just before it and reads them just after; every frame's
+     counts (`_build.launch_counts()`, by C entry) to 0 just before it and
+     reads them just after; every frame's
      track launches each depth filter as a 3-level odometry does (6
      bilateral, 4 pyrdown), and so does each odometry run of the phases
      below (make_fragments' pairs, the slam command's frames); every
      Gauss-Newton iteration of a point-to-plane odometry (SLAM's track,
      here and in phases 11, 14 and 18) launches the sums and the solve
-     kernel, as the program's recorder counts them, and its final metrics
+     kernel, one solve for each iteration the program's recorder counts
+     (`odometry.gn_iterations`), and its final metrics
      the sums once more; the hybrid odometry of phases 8, 13, 14 and 18
      launches neither;
   6. per-stage times of the frame step (CUDA events, after warm-up), peak
@@ -183,14 +185,17 @@ Phases:
 Then one JSON line describing each kernel: its time, its plain version's,
 and its bound, the larger of its bytes over the card's memory rate and its
 float32 operations over the card's float32 rate (bfloat16 products over the
-tensor cores' rate), both counted from this run's inputs. The last line is {"ok": true, "device": {...}}. Any failed
-check raises, so the script exits non-zero and prints no result. It
-imports only torch and open3d_tpu_torch.
+tensor cores' rate), both counted from this run's inputs with the
+benchmark's peaks and per-voxel counts (benchmark/counts/). The last line
+is {"ok": true, "device": {...}}. Any failed check raises, so the script
+exits non-zero and prints no result. It imports only torch,
+open3d_tpu_torch and benchmark.counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import gzip
 import json
 import math
@@ -205,25 +210,10 @@ import time
 import types
 
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
-H100_F32_PER_S = 67e12  # float32 outside the tensor cores, same sheet
-H100_BF16_PER_S = 989e12  # bfloat16 on the tensor cores, dense, same sheet
-# float32 arithmetic (an fma counts two; min, max and compares not counted):
-K1_OPS_VOXEL = 86  # integrate2.cu: 56 for tsdf and weight, 30 for colour
-# The march's function needs, on the work this run's data asks for:
-K2_OPS_RAY = 21  # the ray direction and its squared length, once a ray
-K2_OPS_CHORD = 23  # three slab chords (7 each) and the step, per ray and (tile, block) step
-K2_OPS_SAMPLE = 12  # sample position (8), voxel index (3), decode of the sampled word (1)
-K2_OPS_CROSS = 35  # voxel-centre parameters of the bracket (2 x 15), interpolation (5)
-# K4 is K1's function on other samples: the depth is d_hi + d_lo (one add,
-# where K1 decodes d21 with one multiply), the new tsdf passes the relayout's
-# hi + lo split (two), and the colour needs no byte decode (three fewer)
-K4_OPS_VOXEL = K1_OPS_VOXEL - 1 + 1 + 2 - 3
-# K3, colour variant, per voxel: tsdf decode 1, w_sum 1, 1/w_sum 1, the
-# weighted sum 3, times inv 1, the s1.14 scale 1 (8); colour decode 6, three
-# weighted means of 4 (12), three repacks of 2 (6)
-K3_OPS_VOXEL = 32
-K3_BYTES_VOXEL = 28  # read tsdf_new, wn, cnew, tw, colour; write tw, colour
+# The card's peaks and the kernels K1-K3's operation and byte counts are
+# the benchmark's (benchmark/counts/), imported where they are used; the
+# bfloat16 peak has no twin there (NVIDIA H100 SXM data sheet, dense)
+H100_BF16_PER_S = 989e12
 # K1, K3 and K4 are gated at bit parity with their plain versions; the JAX
 # package's own bars (weight mismatch < 1e-6, tsdf 1e-3, colour 2/255 at
 # q99.9) are the outer limit
@@ -233,14 +223,15 @@ DF_TOL = dict(mismatch=0, max_abs_err=0.0)
 # their float32 operations a tap, counted as above with an expf as one: the
 # bilateral filter's 10 (two expf), the pyrdown's 7; one division a pixel
 DF_OPS_TAP = {"bilateral_depth": 10, "pyrdown_depth": 7}
-# their launches in one 3-level odometry at stride 1 (slam_step's track,
-# make_fragments' pairs): a bilateral filter of source and target at each
-# level, two pyrdowns for each of the two depth pyramids
-DF_PER_ODOMETRY = {"bilateral_depth": 6, "pyrdown_depth": 4}
-# The point-to-plane Gauss-Newton kernels (csrc/point_to_plane.cu), by their
-# wrappers' counts: two launches (sums, solve) an iteration of `iterate`,
-# one (sums) an odometry's final metrics in `residual_sums`
-GN_LAUNCHES = {"p2p_iterate": 2, "p2p_residual_sums": 1}
+# their launches (_build.launch_counts(), by C entry) in one 3-level
+# odometry at stride 1 (slam_step's track, make_fragments' pairs): a
+# bilateral filter of source and target at each level, two pyrdowns for
+# each of the two depth pyramids
+DF_PER_ODOMETRY = {"o3dt_bilateral_depth": 6, "o3dt_pyrdown_depth": 4}
+# The point-to-plane Gauss-Newton kernels (csrc/point_to_plane.cu): the
+# sums and the solve an iteration, the sums once more an odometry's final
+# metrics
+GN_KERNELS = ("o3dt_p2p_sums", "o3dt_p2p_solve")
 # their bars: the sums within 1e-5 of their terms' magnitudes' sum of the
 # float64 sums of the plain rows, the valid count exact; the solve's pose
 # within 2 float32 ulp at 1 of the float64 solve_gn_6x6 + se3_exp
@@ -263,7 +254,12 @@ P3_TOL = dict(hit_agree=1.0, max_abs_dz=1e-6)  # the staged-block march, target 
 COLOR_TOL = dict(median=0.02, q90=0.04)
 NORMAL_TOL_DEG = dict(median=2.0, q90=6.0)
 TRACE_HIT_AGREE = 0.97
-PROBE_KERNELS = ("micro_gather", "micro_raymarch", "micro_primitives")
+# the probes' C entries, by the name of their summary line's kernel
+PROBE_ENTRIES = {"micro_gather": ("o3dt_micro_gather",),
+                 "micro_raymarch": ("o3dt_micro_raymarch",),
+                 "micro_primitives": tuple(f"o3dt_probe_{f}" for f in (
+                     "elementwise", "gather", "reduce", "onehot", "mma_bf16", "ffma"))}
+PROBE_KERNELS = tuple(e for entries in PROBE_ENTRIES.values() for e in entries)
 # Phase 12's bars: the JAX package's own registration tests
 ICP_POSE_TOL = 0.02  # m and rad, tests/test_registration.py:86-87
 BAND_EXACT_TOL = 5e-4  # banded vs exact ICP pose, elementwise, tests/test_nns.py:148
@@ -318,8 +314,10 @@ def nvidia_smi_line() -> str:
 
 def bound(n_bytes: int, n_ops: int):
     """(ms, "bytes" or "operations"): the least time the card could take."""
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_F32_PER_S * 1e3
+    from benchmark.counts import peaks
+
+    t_bytes = n_bytes / peaks.BYTES_PER_S * 1e3
+    t_ops = n_ops / peaks.F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -387,7 +385,7 @@ def check_depth_filters(launches: dict, n_odometry, what: str) -> int:
     `n_odometry` 3-level odometry runs (None: one or more, as many as the
     pyrdown's count says). Returns that number."""
     if n_odometry is None:
-        n_odometry = launches["pyrdown_depth"] // DF_PER_ODOMETRY["pyrdown_depth"]
+        n_odometry = launches["o3dt_pyrdown_depth"] // DF_PER_ODOMETRY["o3dt_pyrdown_depth"]
         check(n_odometry > 0, f"{what}: the depth filters launched {launches}")
     want = {n: c * n_odometry for n, c in DF_PER_ODOMETRY.items()}
     got = {n: launches[n] for n in DF_PER_ODOMETRY}
@@ -419,31 +417,22 @@ class Recorded:
 
 
 def check_gn_kernels(launches: dict, counts, n_odometry: int, what: str) -> int:
-    """Hold the point-to-plane kernels' launches to GN_LAUNCHES: two for each
-    Gauss-Newton iteration the recorder's `counts` say ran them
-    (`odometry.gn_kernel_iterations`, every iteration of a point-to-plane
-    odometry on the card), one for each of the `n_odometry` point-to-plane
-    odometries' final metrics. A path of hybrid odometry alone (n_odometry
-    0; counts None where the recorder was off) launches neither. Returns
-    the kernel iterations."""
-    its = 0 if counts is None else counts.get("odometry.gn_kernel_iterations", 0)
+    """Hold the point-to-plane kernels' launches to the recorder's `counts`:
+    one solve for each Gauss-Newton iteration (`odometry.gn_iterations`) of
+    the `n_odometry` point-to-plane odometries, and one sums for each solve
+    and for each odometry's final metrics. A path of hybrid odometry alone
+    (n_odometry 0; counts None where the recorder was off) launches
+    neither. Returns the kernel iterations."""
+    its = launches["o3dt_p2p_solve"]
     if n_odometry:
         check(its > 0 and its == counts.get("odometry.gn_iterations"),
-              f"{what}: every Gauss-Newton iteration ran the kernels {counts}")
+              f"{what}: every Gauss-Newton iteration ran the kernels {counts} {launches}")
     else:
-        check(its == 0, f"{what}: no point-to-plane odometry, yet kernel iterations {counts}")
-    got = {n: launches[n] for n in GN_LAUNCHES}
-    want = {"p2p_iterate": GN_LAUNCHES["p2p_iterate"] * its,
-            "p2p_residual_sums": GN_LAUNCHES["p2p_residual_sums"] * n_odometry}
-    check(got == want, f"{what}: Gauss-Newton kernel launches {got}, {want} for {its} kernel "
-          f"iterations and {n_odometry} odometries {launches}")
+        check(its == 0, f"{what}: no point-to-plane odometry, yet kernel iterations {launches}")
+    check(launches["o3dt_p2p_sums"] == its + n_odometry,
+          f"{what}: Gauss-Newton kernel launches {launches}, sums for {its} kernel iterations "
+          f"and {n_odometry} odometries")
     return its
-
-
-def gn_kernel_launches(launches: dict) -> dict:
-    """The launches of each Gauss-Newton kernel from its wrappers' counts."""
-    its = launches["p2p_iterate"] // GN_LAUNCHES["p2p_iterate"]
-    return {"p2p_sums": its + launches["p2p_residual_sums"], "p2p_solve": its}
 
 
 class MemorySequence:
@@ -459,9 +448,8 @@ class MemorySequence:
         return self.depths[i], self.colors[i]
 
 
-def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
-                    launch_counts, parity_frame: int = 10, profile_dir=None,
-                    **cfg_overrides) -> dict:
+def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str,
+                    parity_frame: int = 10, profile_dir=None, **cfg_overrides) -> dict:
     """Phases 8-9: the fragment slice through make_fragments, its gates, K3
     against its plain version at the slice's own work list, and the
     fragment path's stage times. Returns what the summary and the kernel
@@ -473,6 +461,7 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     from open3d_tpu_torch.core import lie
     from open3d_tpu_torch.data import synthetic
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import tsdf as k3
     from open3d_tpu_torch.pipelines import odometry as odo
     from open3d_tpu_torch.pipelines import pose_graph as pg
@@ -513,12 +502,12 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     try:
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
-        zero_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         paths = rc.make_fragments(seq, rcfg, device=dev)
         torch.cuda.synchronize()
         make_fragments_ms = (time.perf_counter() - t0) * 1e3
-        launches = launch_counts()
+        launches = _build.launch_counts()
         peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
     finally:
         for name, mod in spied.items():
@@ -527,8 +516,8 @@ def fragment_phases(dev, intr, n_frames: int, span: float, out_dir: str, zero_co
     log(f"[8] make_fragments {make_fragments_ms:.1f} ms, launches {launches}, "
         f"peak {peak_bytes} B above the {base_bytes} B held before; inside it, ms: "
         f"{json.dumps(inside_ms)}")
-    check(launches["fuse_blocks"] == n_frames, f"K3 once per integrated frame {launches}")
-    check(launches["integrate_blocks_v2"] == 0 and launches["integrate_blocks_v1"] == 0,
+    check(launches["o3dt_fuse_blocks"] == n_frames, f"K3 once per integrated frame {launches}")
+    check(launches["o3dt_integrate_blocks"] == 0 and launches["o3dt_integrate_blocks_v1"] == 0,
           f"the 8^3 fragment grid takes K3 only {launches}")
     check(all(launches[n] == 0 for n in PROBE_KERNELS), f"make_fragments runs no probe {launches}")
     check_depth_filters(launches, n_pairs[0], "make_fragments' odometry pairs")
@@ -617,6 +606,7 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
     import numpy as np
     import torch
 
+    from benchmark.counts import k3 as k3_counts
     from open3d_tpu_torch.ops.kernels._timing import device_ms
 
     C = grid.capacity
@@ -649,8 +639,8 @@ def k3_parity(grid, rgbd, pose, intr, rcfg, hm, vbg_mod, k3) -> dict:
             out["plain_ms"] = device_ms(
                 lambda: k3.fuse_blocks_plain(tw_b, col_b, rows, tsdf_new, wn, c_new), reps=3)
     B3 = grid.tw_flat.shape[1]
-    out["bytes"] = live.numel() * B3 * K3_BYTES_VOXEL + rows.numel() * 4
-    out["ops"] = live.numel() * B3 * K3_OPS_VOXEL
+    out["bytes"] = live.numel() * B3 * k3_counts.BYTES_VOXEL + rows.numel() * 4
+    out["ops"] = live.numel() * B3 * k3_counts.OPS_VOXEL
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
     out["max_abs_err"] = max(out["colour"]["max_abs_err"], out["no_colour"]["max_abs_err"])
     out["occupancy"] = {"colour": k3.occupancy(True, B3), "no_colour": k3.occupancy(False, B3)}
@@ -787,7 +777,6 @@ def gn_kernel_times(dev) -> dict:
     from open3d_tpu_torch.data import synthetic
     from open3d_tpu_torch.geometry import image as im
     from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
-    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
     from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
 
@@ -795,8 +784,6 @@ def gn_kernel_times(dev) -> dict:
     depths = synthetic.render_sequence(2, intrinsic=intr, span=0.1, device=dev)[0]
     src_pyr = im.build_depth_pyramid(depths[1].contiguous(), 3)
     tgt_pyr = im.build_depth_pyramid(depths[0].contiguous(), 3)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     sync = torch.cuda.synchronize
     rows = {"p2p_sums": {}, "p2p_solve": {}}
     for lvl in range(3):
@@ -835,7 +822,7 @@ def gn_kernel_times(dev) -> dict:
         JtJ[iu[1], iu[0]] = s64[:21]
         want_T = lie.se3_exp(linalg.solve_gn_6x6(JtJ, s64[21:27])) @ T.double()
         T2 = T.clone()
-        p2p._launch_solve(lv, T2, lib, stream)
+        p2p._launch_solve(lv, T2)
         sync()
         solve_par = {"pose_abs_err": float((T2.double() - want_T).abs().max()),
                      "rmse_rel_err": abs(float(lv.rmse) / math.sqrt(
@@ -850,8 +837,8 @@ def gn_kernel_times(dev) -> dict:
         sums_row = {"parity": sums_par, "valid": count, "gathered": gathered,
                     "blocks": lv.n_blocks}
         solve_row = {"parity": solve_par}
-        for row, fn in ((sums_row, lambda: p2p._launch_sums(lv, T, lib, stream)),
-                        (solve_row, lambda: p2p._launch_solve(lv, scratch, lib, stream))):
+        for row, fn in ((sums_row, lambda: p2p._launch_sums(lv, T)),
+                        (solve_row, lambda: p2p._launch_solve(lv, scratch))):
             for key, timer, reps in (("ms", device_ms, 200), ("cold_ms", cold_ms, 20)):
                 row[key], row[key.replace("ms", "spread_ms")] = median_of(
                     lambda: timer(fn, reps=reps))
@@ -966,7 +953,7 @@ def p2_row(p2, R: int, s_chunk: int, table, idx, out=None) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "occupancy": p2.occupancy(R)}
 
 
-def micro_phase(dev, zero_counts, launch_counts) -> list:
+def micro_phase(dev) -> list:
     """Phase 10: the probes' path. Drives P2, P3 and P1 at the scripts' own
     sizes with the counts set to 0 just before and read just after, holds
     those outputs against the plain versions, then times each kernel, its
@@ -974,6 +961,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     entries of the summary line."""
     import torch
 
+    from benchmark.counts import peaks
     from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import micro_gather as p2
     from open3d_tpu_torch.ops.kernels import micro_primitives as p1
@@ -986,13 +974,13 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     tw, rows = p3.make_inputs(gen, dev)
     p1_in = [(p, p1.make_inputs(p, gen, dev)) for p in p1.PROBES]
     torch.cuda.synchronize()
-    zero_counts()
+    _build.reset_launches()
     p2_out = [p2.gather(table, idx) for _, _, table, idx in p2_in]
     p3_out = p3.march(rows, tw)
     p1_out = [(p1.run_probe(p, ins, p1.ITERS_LO), p1.run_probe(p, ins, p1.ITERS_HI))
               for p, ins in p1_in]
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = _build.launch_counts()
     log(f"[10] probes' path: launches {launches}")
     check(all(launches[n] >= 1 for n in PROBE_KERNELS), f"P1-P3 ran {launches}")
     check(all(c == 0 for n, c in launches.items() if n not in PROBE_KERNELS),
@@ -1011,7 +999,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
 
     p2_entry = {
         "name": "micro_gather", "route": "cuda", "source": "open3d_tpu_torch/csrc/micro_gather.cu",
-        "replaces": "scripts/micro_onehot_gather.py:49", "launches": launches["micro_gather"],
+        "replaces": "scripts/micro_onehot_gather.py:49", "launches": launches["o3dt_micro_gather"],
         "max_abs_err": max(r["max_abs_err"] for r in configs),
         "ms": total(configs, "ms"), "kernel_ms": total(configs, "ms"),
         "spread_ms": total(configs, "spread_ms"),
@@ -1029,21 +1017,21 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     par = p3.parity(p3_out, ref)
     check(par["hit_agree"] >= P3_TOL["hit_agree"] and par["max_abs_dz"] <= P3_TOL["max_abs_dz"]
           and par["hit_frac"] > 0.5, f"P3 against its plain version {par}")
-    per_sm, sms = p3.occupancy()
+    occ = p3.occupancy()
     n_tiles = rows.shape[0]
     p3_ms, p3_spread = median_of(lambda: device_ms(lambda: p3.march(rows, tw), reps=20))
     b_ms, b_by = bound(p3.bytes_moved(n_tiles), p3.ops(n_tiles))
     p3_entry = {
         "name": "micro_raymarch", "route": "cuda", "source": "open3d_tpu_torch/csrc/micro_raymarch.cu",
-        "replaces": "scripts/micro_raymarch_kernel.py:87", "launches": launches["micro_raymarch"],
+        "replaces": "scripts/micro_raymarch_kernel.py:87",
+        "launches": launches["o3dt_micro_raymarch"],
         "max_abs_err": par["max_abs_dz"],
         "ms": p3_ms, "spread_ms": p3_spread,
         "plain_ms": device_ms(lambda: p3.march_plain(rows, tw), reps=2),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "times": MEDIAN_TIMES,
         "library": "none: no PyTorch call marches rays through staged blocks",
         "parity": par, "tolerance": P3_TOL,
-        "occupancy": {"ctas_per_sm": per_sm, "sms": sms,
-                      "waves": -(-n_tiles // (per_sm * sms))},
+        "occupancy": {**occ, "waves": -(-n_tiles // (occ["ctas_per_sm"] * occ["sms"]))},
     }
     p3_entry["kernel_ms"] = p3_entry["ms"]
     log(f"[10] P3 {p3_entry} ({p3.bytes_moved(n_tiles)} B, {p3.ops(n_tiles)} flop)")
@@ -1059,7 +1047,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
         torch.cuda.synchronize()
         rel = p1.rel_err(out, ref)
         check(rel <= p1.tolerance(p), f"P1 {p.name}: {rel} > {p1.tolerance(p)}")
-        peak = H100_BF16_PER_S if p.family == "mma_bf16" else H100_F32_PER_S
+        peak = H100_BF16_PER_S if p.family == "mma_bf16" else peaks.F32_PER_S
         ns, spread = p1.slope_ns(p, ins)
         row = {"name": p.name, "family": p.family, "rel_err": rel, "tolerance": p1.tolerance(p),
                "max_abs_err": float((out.float() - ref.float()).abs().max()),
@@ -1080,7 +1068,7 @@ def micro_phase(dev, zero_counts, launch_counts) -> list:
     p1_entry = {
         "name": "micro_primitives", "route": "cuda",
         "source": "open3d_tpu_torch/csrc/micro_primitives.cu", "replaces": "scripts/perf_micro.py:39",
-        "launches": launches["micro_primitives"],
+        "launches": sum(launches[e] for e in PROBE_ENTRIES["micro_primitives"]),
         "max_abs_err": max(r["max_abs_err"] for r in probes),
         "ms": total(probes, "ns") / 1e6, "plain_ms": total(probes, "plain_ns") / 1e6,
         "bound_ms": total(probes, "bound_ns") / 1e6, "bound_by": "operations",
@@ -1115,8 +1103,7 @@ def camera_facing(normal, hit, intr) -> float:
     return float(((normal[hit] * rays).sum(-1) <= 1e-6).float().mean())
 
 
-def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launch_counts,
-                  smi: str) -> dict:
+def surface_phase(dev, intr, cfg, depths, colors, extr, frag, smi: str) -> dict:
     """Phase 11: the whole raycast surface at full width. SLAM with raycast
     normals over the bench orbit's frames 0-3 (each frame's camera-frame
     normal map feeding the next frame's tracking), then every map at once
@@ -1132,6 +1119,7 @@ def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launc
     from open3d_tpu_torch.data import synthetic
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
     from open3d_tpu_torch.models import dense_slam
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels._timing import median_of
 
     t_start = time.perf_counter()
@@ -1151,17 +1139,18 @@ def surface_phase(dev, intr, cfg, depths, colors, extr, frag, zero_counts, launc
         return model, out
 
     _, off = run(cfg)
-    zero_counts()
+    _build.reset_launches()
     with Recorded() as rec:
         model, on = run(dataclasses.replace(cfg, raycast_normals=True))
     torch.cuda.synchronize()
-    launches = launch_counts()
-    check(launches["march_tiles"] == n and launches["integrate_blocks_v2"] == n,
+    launches = _build.launch_counts()
+    check(launches["o3dt_march_tiles"] == n and launches["o3dt_integrate_blocks"] == n,
           f"SLAM with normals raycasts through K2 and integrates through K1 {launches}")
     check_depth_filters(launches, n, "SLAM with normals")
     check_gn_kernels(launches, rec.counts, n, "SLAM with normals")
     check(all(c == 0 for k, c in launches.items()
-              if k not in ("march_tiles", "integrate_blocks_v2", *DF_PER_ODOMETRY, *GN_LAUNCHES)),
+              if k not in ("o3dt_march_tiles", "o3dt_integrate_blocks", *DF_PER_ODOMETRY,
+                           *GN_KERNELS)),
           f"only K1, K2, the depth filters and the Gauss-Newton kernels {launches}")
     slam = {"max_rot_err": max(f["rot"] for f in on), "max_trans_err": max(f["trans"] for f in on),
             "launches": launches, "frames": []}
@@ -1351,7 +1340,7 @@ def band_whole_windows(b, query, qmask, dmax: float, tile: int = 512):
     return ((lo >= start) & (hi <= start + W)).repeat_interleave(Q)[:n]
 
 
-def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
+def registration_phase(dev, smi: str, intr) -> dict:
     """Phase 12: the registration path at bench.py's two workloads. ICP:
     two frames of render_sequence(2, span=0.15) unprojected with their
     extrinsics (the truth is the identity), voxel_down_sample(0.02,
@@ -1375,6 +1364,7 @@ def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
     from open3d_tpu_torch.geometry.pointcloud import PointCloud
     from open3d_tpu_torch.geometry.rgbd import pointcloud_from_depth
     from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels._timing import median_of
     from open3d_tpu_torch.pipelines import features
     from open3d_tpu_torch.pipelines import global_registration as gr
@@ -1382,7 +1372,7 @@ def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
 
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    _build.reset_launches()
     eye = torch.eye(4, device=dev)
 
     def to_cpu(p):
@@ -1562,7 +1552,7 @@ def registration_phase(dev, smi: str, zero_counts, launch_counts, intr) -> dict:
         "fgr_ms": med(lambda: fgr(c0, moved, f0, fm)),
     })
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = _build.launch_counts()
     check(all(c == 0 for c in launches.values()), f"no kernel of csrc/ on the registration path {launches}")
     times["icp_estimation_ms"] = (times["icp_nn_estimation_ms"][0] - times["icp_nn_ms"][0], None)
     times["icp_other_ms"] = (times["icp_10_iterations_ms"][0] / 10 - times["icp_nn_estimation_ms"][0], None)
@@ -1637,6 +1627,7 @@ def scene_k1_parity(vbg, args: tuple, frame: int) -> dict:
     outside the work list changed, in either; then both timed there."""
     import torch
 
+    from benchmark.counts import k1 as k1_counts
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
     from open3d_tpu_torch.ops.kernels._timing import device_ms, median_of
@@ -1665,7 +1656,7 @@ def scene_k1_parity(vbg, args: tuple, frame: int) -> dict:
                                              reps=20))
     plain_ms = device_ms(lambda: k1.integrate_blocks_plain(tw_b, col_b, *args), reps=3)
     n_bytes = live.numel() * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
-    bound_ms, bound_by = bound(n_bytes, live.numel() * 4096 * K1_OPS_VOXEL)
+    bound_ms, bound_by = bound(n_bytes, live.numel() * 4096 * k1_counts.OPS_VOXEL)
     res = {"frame": frame, "entries": rows.numel(), "live": live.numel(), "parity": par,
            "ms": ms, "spread_ms": spread, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by}
@@ -1674,9 +1665,8 @@ def scene_k1_parity(vbg, args: tuple, frame: int) -> dict:
     return res
 
 
-def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts, launch_counts,
-                smi: str, frag: dict, whole_capacity: int = 16_000_000, k1_frame: int = 60,
-                **cfg_overrides) -> dict:
+def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, smi: str, frag: dict,
+                whole_capacity: int = 16_000_000, k1_frame: int = 60, **cfg_overrides) -> dict:
     """Phase 13: the offline system end to end through run_system, then
     extract_scene_mesh, at ReconstructionConfig's defaults: `n_frames`
     frames of the synthetic room (640x480 on the card) in fragments of 40
@@ -1698,6 +1688,7 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
     from open3d_tpu_torch.data import synthetic
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
     from open3d_tpu_torch.ops import mesh as mops
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
     from open3d_tpu_torch.pipelines import features
     from open3d_tpu_torch.pipelines import global_registration as gr
@@ -1760,22 +1751,18 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
         k1_calls[0] += 1
         return k1_launch(*a, **kw)
 
-    # the wrapper counts through its module's name, which now names the
-    # spy: both share one attribute dict, so the count lands where
-    # launch_counts reads it
-    k1_spy.__dict__ = k1_launch.__dict__
     for name, mod in spied.items():
         setattr(mod, name, timed(name))
     k1.integrate_blocks_v2 = k1_spy
     try:
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
-        zero_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         vbg, traj, graph = rc.run_system(seq, rcfg, device=dev)
         torch.cuda.synchronize()
         stage_ms["run_system"] = (time.perf_counter() - t0) * 1e3
-        launches = launch_counts()
+        launches = _build.launch_counts()
         peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
     finally:
         k1.integrate_blocks_v2 = k1_launch
@@ -1786,9 +1773,9 @@ def scene_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts
     log(f"[13] run_system over {n_frames} frames: {json.dumps(stage_ms)} ms, launches "
         f"{launches}, peak {peak_bytes} B above the {base_bytes} B held before | card {smi}")
     log(f"[13] inside each stage, ms: {json.dumps(inside_ms)}")
-    check(launches["fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
-    check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
-    check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
+    check(launches["o3dt_fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
+    check(launches["o3dt_integrate_blocks"] == n_frames, f"K1 once per scene frame {launches}")
+    check(launches["o3dt_march_tiles"] == 0 and launches["o3dt_integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
     check_depth_filters(launches, n_pairs[0], "run_system's odometry pairs")
     check_gn_kernels(launches, None, 0, "run_system's hybrid odometry")
@@ -1982,8 +1969,8 @@ def fragment_consistency(clouds, poses, edges, dmax: float) -> dict:
     return {"rms_m": (sq / max(cnt, 1)) ** 0.5, "pairs": cnt}
 
 
-def post_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
-               poisson_depths=(8, 6), poisson_capacity: int = 4_000_000) -> dict:
+def post_phase(dev, intr, data: dict, smi: str, poisson_depths=(8, 6),
+               poisson_capacity: int = 4_000_000) -> dict:
     """Phase 15: the post-processing of phase 13's scene at full width. SLAC
     on the three fragments as written (down-sampled at SLAC's voxel, normals
     by estimate_normals) from the scene graph, then deform_fragment on the
@@ -2009,6 +1996,7 @@ def post_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
     from open3d_tpu_torch.geometry.pointcloud import PointCloud
     from open3d_tpu_torch.ops import pointcloud as pc_ops
     from open3d_tpu_torch.ops import segmentation as seg
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.pipelines import color_map as cm
     from open3d_tpu_torch.pipelines import reconstruction as rc
     from open3d_tpu_torch.pipelines import slac
@@ -2025,7 +2013,7 @@ def post_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
     frag_vox = 2 * rcfg.voxel_size  # the fragment grid's voxel
     n_frag = len(data["fragment_paths"])
     truth = (extr[0] @ lie.invert_se3(extr)).cpu().numpy()  # frame i -> frame 0
-    zero_counts()
+    _build.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -2394,7 +2382,7 @@ def post_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
     check(bvr["extrude_lines"] == world.shape[0] and bvr["extrude_max_len_err"] < 1e-5,
           f"extrude_linear: one segment a point, of the right length {bvr}")
 
-    launches = launch_counts()
+    launches = _build.launch_counts()
     out["launches"] = launches
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     out["s"] = time.perf_counter() - t_start
@@ -2455,8 +2443,8 @@ def check_rays(res: dict, what: str) -> None:
           and res["max_rel_dt_at_ties"] <= 1e-6, f"{what} {res}")
 
 
-def toolbox_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
-                  n_rays: int = 16384, n_cpu_rays: int = 4096, n_brute_points: int = 4096,
+def toolbox_phase(dev, intr, data: dict, smi: str, n_rays: int = 16384, n_cpu_rays: int = 4096,
+                  n_brute_points: int = 4096,
                   sphere_res=(96, 192), bool_voxel: float = 0.01, vol_points: int = 262144,
                   block: int = 16, atlas_size: int = 4096, dense_voxel: float = 0.05,
                   view_frames=(0, 40, 80, 119), distance_frame: int = 60) -> dict:
@@ -2484,6 +2472,7 @@ def toolbox_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
     from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
     from open3d_tpu_torch.geometry.trianglemesh import TriangleMesh
     from open3d_tpu_torch.ops import mesh as mops
+    from open3d_tpu_torch.ops.kernels import _build
 
     cpu = torch.device("cpu")
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -2513,7 +2502,7 @@ def toolbox_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
                 "max": int(s.max())}
 
     bvh_mod._traverse = counted
-    zero_counts()
+    _build.reset_launches()
     try:
         # ---- 16a. rays on the whole-surface scene mesh (the BVH route)
         whole = data["whole"]
@@ -2847,7 +2836,7 @@ def toolbox_phase(dev, intr, data: dict, smi: str, zero_counts, launch_counts,
         out["voxels"] = {"grid": vgr, "carve": carve, "octree": oc}
     finally:
         bvh_mod._traverse = traverse
-    launches = launch_counts()
+    launches = _build.launch_counts()
     out["launches"] = launches
     out["s"] = time.perf_counter() - t_start
     say(f"launches on this path {launches}")
@@ -2895,8 +2884,7 @@ def k3_replay(k3, vbg_mod, pre_tw, pre_col, rows, tsdf_new, wn, cnew, what: str)
 class K3Capture:
     """A spy over tsdf.fuse_blocks that keeps, for its `at`-th call, a copy
     of the payload before the fuse and references to the call's arguments
-    (for k3_replay), and passes every call on. It shares the wrapper's
-    attribute dict, so the launch count lands where launch_counts reads it."""
+    (for k3_replay), and passes every call on."""
 
     def __init__(self, k3, at: int):
         self.k3, self.at, self.calls, self.kept = k3, at, 0, None
@@ -2909,7 +2897,6 @@ class K3Capture:
             self.calls += 1
             return self.launch(tw, color, rows, tsdf_new, wn, cnew, *rest, **kw)
 
-        spy.__dict__ = self.launch.__dict__
         self.k3.fuse_blocks = spy
         return self
 
@@ -3034,8 +3021,8 @@ def solves_phase(dev, smi: str, sync) -> dict:
     return {"cg": cg, "ba": ba}
 
 
-def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts, launch_counts,
-               smi: str, k3_call: int = 10, slam_frames: int = 20, **cfg_overrides) -> dict:
+def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, smi: str, k3_call: int = 10,
+               slam_frames: int = 20, **cfg_overrides) -> dict:
     """Phase 14: the entry points from disk and the multi-device path on a
     one-rank group of the card (NCCL). `n_frames` frames of the synthetic
     room written in the TUM layout by write_tum_sequence and read back by
@@ -3059,6 +3046,7 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
     from open3d_tpu_torch.data import synthetic
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
     from open3d_tpu_torch.models import dense_slam
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels import tsdf as k3
     from open3d_tpu_torch.parallel import fragments as pf
     from open3d_tpu_torch.parallel import pipeline as pp
@@ -3110,20 +3098,20 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
     stages = ("make_fragments", "register_fragments", "refine_registration", "integrate_scene")
     with CallTimes({**dict.fromkeys(stages, rc), "global_optimization": pg}, sync,
                    outer=stages) as times, K3Capture(k3, k3_call) as cap:
-        zero_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         vbg, traj, graph = rc.run_system(seq, rcfg, mesh=mesh, device=dev)
         sync()
         run_ms = (time.perf_counter() - t0) * 1e3
-        launches = launch_counts()
+        launches = _build.launch_counts()
     stage_ms = {**times.ms, "run_system": run_ms}
     log(f"[14] run_system(mesh=make_pipeline_mesh(1)) over {n_frames} frames from disk: "
         f"{json.dumps(stage_ms)} ms, the pose-graph solves inside each stage "
         f"{json.dumps(times.inside)} ms ({json.dumps(times.calls)} calls), launches {launches}, "
         f"group {group} | card {smi}")
-    check(launches["fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
-    check(launches["integrate_blocks_v2"] == n_frames, f"K1 once per scene frame {launches}")
-    check(launches["march_tiles"] == 0 and launches["integrate_blocks_v1"] == 0
+    check(launches["o3dt_fuse_blocks"] == n_frames, f"K3 once per fragment frame {launches}")
+    check(launches["o3dt_integrate_blocks"] == n_frames, f"K1 once per scene frame {launches}")
+    check(launches["o3dt_march_tiles"] == 0 and launches["o3dt_integrate_blocks_v1"] == 0
           and all(launches[n] == 0 for n in PROBE_KERNELS), f"no other kernel {launches}")
     check_depth_filters(launches, None, "run_system(mesh=...)'s odometry")
     check_gn_kernels(launches, None, 0, "run_system(mesh=...)'s hybrid odometry")
@@ -3216,18 +3204,19 @@ def disk_phase(dev, intr, n_frames: int, span: float, out_dir: str, zero_counts,
         argv += ["--device", str(dev)]
     with CallTimes({"slam_step": dense_slam, "extract_triangle_mesh": vbg_mod,
                     "write_triangle_mesh": rio}, sync) as slam_times:
-        zero_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         with Recorded() as rec:
             cli.main(argv)
         sync()
         slam_ms = (time.perf_counter() - t0) * 1e3
-        slam_launches = launch_counts()
+        slam_launches = _build.launch_counts()
     check(os.path.isfile(os.path.join(slam_out, "trajectory.log"))
           and os.path.getsize(os.path.join(slam_out, "mesh.ply")) > 0,
           "the slam command wrote trajectory.log and mesh.ply")
-    check(slam_launches["integrate_blocks_v2"] >= slam_frames
-          and slam_launches["march_tiles"] >= slam_frames, f"K1 and K2 each frame {slam_launches}")
+    check(slam_launches["o3dt_integrate_blocks"] >= slam_frames
+          and slam_launches["o3dt_march_tiles"] >= slam_frames,
+          f"K1 and K2 each frame {slam_launches}")
     check_depth_filters(slam_launches, slam_times.calls["slam_step"], "the slam command's track")
     check_gn_kernels(slam_launches, rec.counts, slam_times.calls["slam_step"],
                      "the slam command's track")
@@ -3296,7 +3285,7 @@ def neighbour_gap(q, pts, idx_a, idx_b, r2=None) -> dict:
     return out
 
 
-def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
+def ml_io_phase(dev, intr, smi: str, out_dir: str,
                 n_points: int = 16384, n_centres: int = 1024, n_known: int = 4096,
                 n_boxes: int = 1024, n_rois: int = 128, roi_samples: int = 512,
                 max_voxels: int = 40000, mesh_voxel: float = 0.05, seq_frames: int = 4) -> dict:
@@ -3327,6 +3316,7 @@ def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
     from open3d_tpu_torch.io import pcd as pcd_io
     from open3d_tpu_torch.ml import ops
     from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.ops.kernels._timing import median_of
     from open3d_tpu_torch.pipelines.surface_reconstruction import marching_tetrahedra_dense
     from open3d_tpu_torch.utils import memory as mem
@@ -3374,7 +3364,7 @@ def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
         out["ops"][name] = res
         say(f"{name}: {res}")
 
-    zero_counts()
+    _build.reset_launches()
     d, c, e, _ = synthetic.render_sequence(1, intrinsic=intr, device=dev)
     frame = pointcloud_from_depth(d[0], intr, e[0], color=c[0])
     pts = frame.positions[frame.mask]  # the frame's valid points, world frame
@@ -3829,7 +3819,7 @@ def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
     check(view.get("draw", {"png_bytes": 1001})["png_bytes"] > 1000
           and view.get("rpc", {"round_trip": True})["round_trip"], f"viewer {view}")
 
-    launches = launch_counts()
+    launches = _build.launch_counts()
     out["launches"] = launches
     out["s"] = time.perf_counter() - t_start
     say(f"launches on this path {launches}")
@@ -3837,7 +3827,7 @@ def ml_io_phase(dev, intr, smi: str, zero_counts, launch_counts, out_dir: str,
     return out
 
 
-def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) -> dict:
+def bench_phase(dev, smi: str, band_shortfall: int) -> dict:
     """Phase 18: the benchmark suite, open3d_tpu_torch.bench.main(), in this
     process at full width (its own configuration: 640x480, the 8-frame
     span-0.8 orbit, 40 960 blocks), counted like phase 5; then the `bench`
@@ -3860,6 +3850,7 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
     from open3d_tpu_torch.geometry import voxel_block_grid as vbg_mod
     from open3d_tpu_torch.models import dense_slam
     from open3d_tpu_torch.ops import pointcloud as pc_ops
+    from open3d_tpu_torch.ops.kernels import _build
     from open3d_tpu_torch.pipelines import features, odometry
     from open3d_tpu_torch.pipelines import global_registration as gr
     from open3d_tpu_torch.pipelines import registration as reg
@@ -3884,12 +3875,12 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
                                 else name)
             if name == "bench_integration":
                 state["extr"] = a[3]
-            before = launch_counts()
+            before = _build.launch_counts()
             with Recorded() as rec:
                 out = fn(*a, **kw)
-            sec_launches, sec_counts = by_section.get(state["section"], ({}, {}))
-            for k, c in launch_counts().items():
-                sec_launches[k] = sec_launches.get(k, 0) + c - before[k]
+            sec_launches, sec_counts = by_section.get(state["section"],
+                                                      (collections.Counter(), {}))
+            sec_launches.update(_build.launch_counts() - before)
             for k, c in rec.counts.items():
                 sec_counts[k] = sec_counts.get(k, 0) + c
             by_section[state["section"]] = (sec_launches, sec_counts)
@@ -3914,7 +3905,7 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
         setattr(bench, n, in_section(n, getattr(bench, n)))
     for m, n in calls:
         setattr(m, n, timed(n, getattr(m, n)))
-    zero_counts()
+    _build.reset_launches()
     try:
         t0 = time.perf_counter()
         out = bench.main(device=dev)
@@ -3923,7 +3914,7 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    launches = launch_counts()
+    launches = _build.launch_counts()
     log(f"[18] bench.py's line on the card, {suite_s:.1f} s: {json.dumps(out)} | card {smi}")
     log(f"[18] launches in the suite {launches}")
     medians = {f"{s}/{c}": {"calls": len(v), "median_ms": statistics.median(
@@ -3957,16 +3948,17 @@ def bench_phase(dev, smi: str, zero_counts, launch_counts, band_shortfall: int) 
           f"bench raycast accuracy within a voxel, misses under 0.08 {ex}")
     check(ex["icp_band_shortfall"] == band_shortfall,
           f"bench icp_band_shortfall {ex['icp_band_shortfall']} = phase 12's {band_shortfall}")
-    check(launches["integrate_blocks_v2"] > 0 and launches["march_tiles"] > 0
+    check(launches["o3dt_integrate_blocks"] > 0 and launches["o3dt_march_tiles"] > 0
           and all(launches[n] > 0 for n in DF_PER_ODOMETRY),
           f"K1, K2 and the depth filters launched in the suite {launches}")
     check(all(c == 0 for k, c in launches.items()
-              if k not in ("integrate_blocks_v2", "march_tiles", *DF_PER_ODOMETRY, *GN_LAUNCHES)),
+              if k not in ("o3dt_integrate_blocks", "o3dt_march_tiles", *DF_PER_ODOMETRY,
+                           *GN_KERNELS)),
           f"K3, K4 and P1-P3 not launched in the suite {launches}")
     for sec, (sec_launches, sec_counts) in by_section.items():
         check_gn_kernels(sec_launches, sec_counts, len(events.get((sec, "slam_step"), [])),
                          f"bench section {sec}")
-    check(any(v[0]["p2p_iterate"] for v in by_section.values()),
+    check(any(v[0]["o3dt_p2p_solve"] for v in by_section.values()),
           f"the suite's SLAM ran the Gauss-Newton kernels {by_section}")
     check(len(poses) == len(order) and max(trans[:5]) < POSE_TOL and max(rot[:5]) < POSE_TOL,
           f"bench_slam pose within {POSE_TOL} of the truth on the first pass's frames 0-3 {trans} {rot}")
@@ -4068,6 +4060,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    from benchmark.counts import k1 as k1_counts
+    from benchmark.counts import k2 as k2_counts
     from open3d_tpu_torch.core import hashmap as hm
     from open3d_tpu_torch.core import lie
     from open3d_tpu_torch.data import synthetic
@@ -4075,30 +4069,10 @@ def main(argv=None) -> int:
     from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
     from open3d_tpu_torch.models import dense_slam
     from open3d_tpu_torch.ops.kernels import _build
-    from open3d_tpu_torch.ops.kernels import depth_filters as df
     from open3d_tpu_torch.ops.kernels import integrate as k4
     from open3d_tpu_torch.ops.kernels import integrate2 as k1
-    from open3d_tpu_torch.ops.kernels import micro_gather as p2
-    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
-    from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
-    from open3d_tpu_torch.ops.kernels import point_to_plane as gn
     from open3d_tpu_torch.ops.kernels import raycast as k2
-    from open3d_tpu_torch.ops.kernels import tsdf as k3
     from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
-
-    wrappers = {"integrate_blocks_v2": k1.integrate_blocks_v2, "march_tiles": k2.march_tiles,
-                "fuse_blocks": k3.fuse_blocks, "integrate_blocks_v1": k4.integrate_blocks,
-                "micro_primitives": p1.run_probe, "micro_gather": p2.gather,
-                "micro_raymarch": p3.march, "bilateral_depth": df.bilateral_depth,
-                "pyrdown_depth": df.pyrdown_depth, "p2p_iterate": gn.iterate,
-                "p2p_residual_sums": gn.residual_sums}
-
-    def launch_counts() -> dict:
-        return {n: f.launches for n, f in wrappers.items()}
-
-    def zero_counts() -> None:
-        for f in wrappers.values():
-            f.launches = 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4170,7 +4144,7 @@ def main(argv=None) -> int:
         lambda: k1.integrate_blocks_v2(grid.tw, grid.color, *k1_args), reps=20))
     k1_plain_ms = device_ms(lambda: k1.integrate_blocks_plain(ref.tw, ref.color, *k1_args), reps=3)
     k1_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + d21.numel() * 4 + rgb24.numel() * 4
-    k1_ops = n_live * 4096 * K1_OPS_VOXEL
+    k1_ops = n_live * 4096 * k1_counts.OPS_VOXEL
     k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
     log(f"[3] K1 {k1_ms:.4f} ms warm (spread {k1_spread:.4f}), {k1_cold_ms:.4f} ms cold (spread "
         f"{k1_cold_spread:.4f}; the process's first cold "
@@ -4202,7 +4176,11 @@ def main(argv=None) -> int:
         lambda: k4.integrate_blocks(tw_a, col_a, *k4_args), reps=20))
     k4_plain_ms = device_ms(lambda: k4.integrate_blocks_plain_v1(tw_b, col_b, *k4_args), reps=3)
     k4_bytes = n_live * 4 * 4096 * 4 + rows.numel() * 16 + planes.numel() * 2
-    k4_ops = n_live * 4096 * K4_OPS_VOXEL
+    # K4 is K1's function on other samples: the depth is d_hi + d_lo (one
+    # add, where K1 decodes d21 with one multiply), the new tsdf passes the
+    # relayout's hi + lo split (two), and the colour needs no byte decode
+    # (three fewer)
+    k4_ops = n_live * 4096 * (k1_counts.OPS_VOXEL - 1 + 1 + 2 - 3)
     k4_bound_ms, k4_bound_by = bound(k4_bytes, k4_ops)
     log(f"[3] K4 {k4_ms:.4f} ms warm (spread {k4_spread:.4f}), {k4_cold_ms:.4f} ms cold (spread "
         f"{k4_cold_spread:.4f}), plain {k4_plain_ms:.3f} ms, "
@@ -4243,8 +4221,8 @@ def main(argv=None) -> int:
             "tiles_walking_all": int((steps == nk_tot).sum()),
             "candidates_mean": float(nk_tot.double().mean()),
             "histogram": torch.bincount(steps).tolist()}
-    per_sm, sms = k2.occupancy(6)
-    occ = {"ctas_per_sm": per_sm, "sms": sms, "waves": -(-steps.numel() // (per_sm * sms))}
+    occ = k2.occupancy(6)
+    occ["waves"] = -(-steps.numel() // (occ["ctas_per_sm"] * occ["sms"]))
     log(f"[4] K2 work {stats}; candidates walked a tile {walk}; occupancy {occ}")
     k2_ms, k2_spread = median_of(lambda: device_ms(
         lambda: k2.march_tiles(grid, lists, intr, E, cfg.depth_min, cfg.depth_max), reps=20))
@@ -4275,10 +4253,10 @@ def main(argv=None) -> int:
                 + lists.nk.numel() * 4 + 4 + out_bytes)
     log(f"[4] K2 bytes: {k2_bytes} B by sampled sectors, {k2_bytes_rows} B by whole rows "
         f"(the earlier count)")
-    k2_ops = (intr.height * intr.width * K2_OPS_RAY
-              + stats["pairs_visited"] * 256 * K2_OPS_CHORD
-              + stats["ray_blocks"] * (1 + 6 * K2_OPS_SAMPLE)  # contiguity test, M = 6 samples
-              + stats["crossings"] * K2_OPS_CROSS)
+    k2_ops = (intr.height * intr.width * k2_counts.OPS_RAY
+              + stats["pairs_visited"] * 256 * k2_counts.OPS_CHORD
+              + stats["ray_blocks"] * (1 + k2_counts.SAMPLES * k2_counts.OPS_SAMPLE)
+              + stats["crossings"] * k2_counts.OPS_CROSS)
     k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_ops)
     log(f"[4] K2 {k2_ms:.4f} ms warm (spread {k2_spread:.4f}), {k2_cold_ms:.4f} ms cold (spread "
         f"{k2_cold_spread:.4f}), plain {k2_plain_ms:.3f} ms, "
@@ -4305,11 +4283,11 @@ def main(argv=None) -> int:
         md = torch.zeros_like(depths[0])
         per_frame, rot, trans, res = [], [], [], None
         for i in range(depths.shape[0]):
-            before = launch_counts()
+            before = _build.launch_counts()
             with Recorded() as rec:
                 res = dense_slam.slam_step(model, depths[i], colors[i], md, intr)
             model, md = res.model, res.raycast_depth
-            per_frame.append({n: c - before[n] for n, c in launch_counts().items()})
+            per_frame.append(_build.launch_counts() - before)
             gn_iterations.append(check_gn_kernels(per_frame[-1], rec.counts, 1,
                                                   f"slam_step's track, frame {i}"))
             r, t = lie.pose_distance(model.T_frame_to_world, lie.invert_se3(extr[i]))
@@ -4323,16 +4301,16 @@ def main(argv=None) -> int:
     check(max(trans08[:4]) < 0.05 and max(rot08[:4]) < 0.05,
           f"bench orbit pose error vs truth, frames 0-3: {trans08[:4]} {rot08[:4]}")
     depths, colors, extr, _ = synthetic.render_sequence(8, intrinsic=intr, span=0.4, device=dev)
-    zero_counts()
+    _build.reset_launches()
     model, md, res, per_frame, rot, trans = run_slice(depths, colors, extr)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = _build.launch_counts()
     log(f"[5] launches {launches}, per frame {per_frame}")
-    check(all(f["integrate_blocks_v2"] >= 1 and f["march_tiles"] >= 1 for f in per_frame),
+    check(all(f["o3dt_integrate_blocks"] >= 1 and f["o3dt_march_tiles"] >= 1 for f in per_frame),
           "K1 and K2 ran on every frame")
     for f in per_frame:
         check_depth_filters(f, 1, "slam_step's track, each frame")
-    check(launches["fuse_blocks"] == 0 and launches["integrate_blocks_v1"] == 0,
+    check(launches["o3dt_fuse_blocks"] == 0 and launches["o3dt_integrate_blocks_v1"] == 0,
           f"the 16^3 default path takes K1 only {launches}")
     check(all(launches[n] == 0 for n in PROBE_KERNELS), f"the SLAM slice runs no probe {launches}")
     truth = depths[-1]
@@ -4360,10 +4338,10 @@ def main(argv=None) -> int:
     prev_v1 = os.environ.get("O3DTPU_INTEGRATE_V1")
     os.environ["O3DTPU_INTEGRATE_V1"] = "1"
     try:
-        zero_counts()
+        _build.reset_launches()
         _, _, _, per_frame_v1, rot_v1, trans_v1 = run_slice(depths[:4], colors[:4], extr[:4])
         torch.cuda.synchronize()
-        launches_v1 = launch_counts()
+        launches_v1 = _build.launch_counts()
     finally:
         if prev_v1 is None:
             os.environ.pop("O3DTPU_INTEGRATE_V1")
@@ -4373,7 +4351,7 @@ def main(argv=None) -> int:
               "launches": launches_v1}
     log(f"[5] O3DTPU_INTEGRATE_V1 slice {v1_res}; per frame {per_frame_v1}")
     check(max(trans_v1) < POSE_TOL and max(rot_v1) < POSE_TOL, f"V1 pose error vs truth {v1_res}")
-    check(all(f["integrate_blocks_v1"] >= 1 and f["integrate_blocks_v2"] == 0
+    check(all(f["o3dt_integrate_blocks_v1"] >= 1 and f["o3dt_integrate_blocks"] == 0
               for f in per_frame_v1), f"K4 in place of K1 on every frame {per_frame_v1}")
     for f in per_frame_v1:
         check_depth_filters(f, 1, "the V1 run's track, each frame")
@@ -4418,24 +4396,22 @@ def main(argv=None) -> int:
     # ---- 8-9. the fragment slice: one 40-frame fragment of the synthetic
     # room, about 1.8 deg and 4 cm a frame, at ReconstructionConfig's defaults
     with tempfile.TemporaryDirectory() as out_dir:
-        fr = fragment_phases(dev, intr, 40, 1.2, out_dir, zero_counts, launch_counts,
-                             profile_dir=opts.profile)
+        fr = fragment_phases(dev, intr, 40, 1.2, out_dir, profile_dir=opts.profile)
     k3_out = fr["k3"]
     torch.cuda.empty_cache()
 
     # ---- 10. the probes' path: P1-P3 at the scripts' own sizes
-    probe_kernels = micro_phase(dev, zero_counts, launch_counts)
+    probe_kernels = micro_phase(dev)
     torch.cuda.empty_cache()
 
     # ---- 11. the raycast surface: maps, normals in tracking, the trace
     depths, colors, extr, _ = synthetic.render_sequence(8, intrinsic=intr, span=0.8, device=dev)
-    surface = surface_phase(dev, intr, cfg, depths, colors, extr, fr, zero_counts, launch_counts,
-                            smi)
+    surface = surface_phase(dev, intr, cfg, depths, colors, extr, fr, smi)
     del depths, colors, extr
     torch.cuda.empty_cache()
 
     # ---- 12. the registration path: ICP, FPFH, RANSAC and FGR
-    registration = registration_phase(dev, smi, zero_counts, launch_counts, intr)
+    registration = registration_phase(dev, smi, intr)
     torch.cuda.empty_cache()
 
     # ---- 13. the offline system end to end: run_system over 120 frames of
@@ -4449,14 +4425,13 @@ def main(argv=None) -> int:
     # Poisson and the alpha shape, the colour map, segmentation and the
     # bounding volumes (no kernel of csrc/ on this path)
     with tempfile.TemporaryDirectory() as out_dir:
-        scene, scene_data = scene_phase(dev, intr, 120, 0.4, out_dir, zero_counts,
-                                        launch_counts, smi, fr)
+        scene, scene_data = scene_phase(dev, intr, 120, 0.4, out_dir, smi, fr)
         torch.cuda.empty_cache()
-        post = post_phase(dev, intr, scene_data, smi, zero_counts, launch_counts)
+        post = post_phase(dev, intr, scene_data, smi)
         torch.cuda.empty_cache()
         # ---- 16. ray casting, the mesh toolbox and voxel grids on that
         # scene's meshes and frames (no kernel of csrc/ on this path)
-        toolbox = toolbox_phase(dev, intr, scene_data, smi, zero_counts, launch_counts)
+        toolbox = toolbox_phase(dev, intr, scene_data, smi)
     del scene_data
     torch.cuda.empty_cache()
 
@@ -4464,7 +4439,7 @@ def main(argv=None) -> int:
     # written and read in the TUM layout, run_system(mesh=...) on it, the
     # distributed solves at dryrun_multichip's sizes, the slam command
     with tempfile.TemporaryDirectory() as out_dir:
-        disk = disk_phase(dev, intr, 120, 0.4, out_dir, zero_counts, launch_counts, smi)
+        disk = disk_phase(dev, intr, 120, 0.4, out_dir, smi)
     torch.cuda.empty_cache()
     log("[14] stage ms, phase 14 (from disk, sharded stage 1) beside phase 13 (from memory): "
         + json.dumps({k: [disk["stage_ms"].get(k), scene["stage_ms"].get(k)]
@@ -4474,33 +4449,40 @@ def main(argv=None) -> int:
     # the native library, the utilities and the viewer, on one frame of the
     # synthetic room (no kernel of csrc/ on this path)
     with tempfile.TemporaryDirectory() as out_dir:
-        mlio = ml_io_phase(dev, intr, smi, zero_counts, launch_counts, out_dir)
+        mlio = ml_io_phase(dev, intr, smi, out_dir)
     torch.cuda.empty_cache()
 
     # ---- 18. the benchmark suite (open3d_tpu_torch.bench) at full width,
     # then its command at the small configuration
-    bench = bench_phase(dev, smi, zero_counts, launch_counts,
-                        registration["shortfall"]["card"])
+    bench = bench_phase(dev, smi, registration["shortfall"]["card"])
     torch.cuda.empty_cache()
+
+    # each counted path's launches by C entry; a kernel's line names the
+    # paths that could launch it
+    paths = {"slam_step (phase 5)": launches, "O3DTPU_INTEGRATE_V1 run (phase 5)": launches_v1,
+             "make_fragments (phase 8)": fr["launches"],
+             "SLAM with normals (phase 11)": surface["slam_normals"]["launches"],
+             "run_system (phase 13)": scene["launches"],
+             "run_system(mesh=...) from disk (phase 14)": disk["launches"],
+             "make_fragments_sharded (phase 14)": disk["launches"],
+             "slam command (phase 14)": disk["slam_command"]["launches"],
+             "post-processing (phase 15)": post["launches"], PHASE16: toolbox["launches"],
+             PHASE17: mlio["launches"], PHASE18: bench["launches"]}
+    later = ("post-processing (phase 15)", PHASE16, PHASE17, PHASE18)
+    odometry_paths = [p for p in paths if p != "make_fragments_sharded (phase 14)"]
+
+    def by_path(entries, names) -> dict:
+        return {p: sum(paths[p][e] for e in entries) for p in names}
 
     kernels = [
         {
             "name": "integrate_blocks_v2", "route": "cuda",
             "source": "open3d_tpu_torch/csrc/integrate2.cu",
             "replaces": "open3d_tpu/ops/pallas/integrate2.py:128",
-            "launches": launches["integrate_blocks_v2"],
-            "launches_by_path": {"slam_step (phase 5)": launches["integrate_blocks_v2"],
-                                 "run_system (phase 13)":
-                                     scene["launches"]["integrate_blocks_v2"],
-                                 "run_system(mesh=...) from disk (phase 14)":
-                                     disk["launches"]["integrate_blocks_v2"],
-                                 "slam command (phase 14)":
-                                     disk["slam_command"]["launches"]["integrate_blocks_v2"],
-                                 "post-processing (phase 15)":
-                                     post["launches"]["integrate_blocks_v2"],
-                                 PHASE16: toolbox["launches"]["integrate_blocks_v2"],
-                                 PHASE17: mlio["launches"]["integrate_blocks_v2"],
-                                 PHASE18: bench["launches"]["integrate_blocks_v2"]},
+            "launches": launches["o3dt_integrate_blocks"],
+            "launches_by_path": by_path(("o3dt_integrate_blocks",), (
+                "slam_step (phase 5)", "run_system (phase 13)",
+                "run_system(mesh=...) from disk (phase 14)", "slam command (phase 14)", *later)),
             "max_abs_err": max(k1_par["max_abs_err"], scene["k1"]["parity"]["max_abs_err"]),
             "parity_by_path": {"slam_step (phase 3)": k1_par,
                                "run_system (phase 13)": scene["k1"]},
@@ -4513,14 +4495,9 @@ def main(argv=None) -> int:
             "name": "march_tiles", "route": "cuda",
             "source": "open3d_tpu_torch/csrc/raycast.cu",
             "replaces": "open3d_tpu/ops/pallas/raycast.py:195",
-            "launches": launches["march_tiles"],
-            "launches_by_path": {"slam_step (phase 5)": launches["march_tiles"],
-                                 "slam command (phase 14)":
-                                     disk["slam_command"]["launches"]["march_tiles"],
-                                 "post-processing (phase 15)": post["launches"]["march_tiles"],
-                                 PHASE16: toolbox["launches"]["march_tiles"],
-                                 PHASE17: mlio["launches"]["march_tiles"],
-                                 PHASE18: bench["launches"]["march_tiles"]},
+            "launches": launches["o3dt_march_tiles"],
+            "launches_by_path": by_path(("o3dt_march_tiles",), (
+                "slam_step (phase 5)", "slam command (phase 14)", *later)),
             "max_abs_err": k2_par["max_abs_dz"],
             "ms": k2_ms, "kernel_ms": k2_ms, "cold_ms": k2_cold_ms, "plain_ms": k2_plain_ms,
             "spread_ms": k2_spread, "cold_spread_ms": k2_cold_spread, "times": MEDIAN_TIMES,
@@ -4532,15 +4509,10 @@ def main(argv=None) -> int:
             "name": "fuse_blocks", "route": "cuda",
             "source": "open3d_tpu_torch/csrc/tsdf.cu",
             "replaces": "open3d_tpu/ops/pallas/tsdf.py:56",
-            "launches": fr["launches"]["fuse_blocks"],
-            "launches_by_path": {"make_fragments (phase 8)": fr["launches"]["fuse_blocks"],
-                                 "run_system (phase 13)": scene["launches"]["fuse_blocks"],
-                                 "make_fragments_sharded (phase 14)":
-                                     disk["launches"]["fuse_blocks"],
-                                 "post-processing (phase 15)": post["launches"]["fuse_blocks"],
-                                 PHASE16: toolbox["launches"]["fuse_blocks"],
-                                 PHASE17: mlio["launches"]["fuse_blocks"],
-                                 PHASE18: bench["launches"]["fuse_blocks"]},
+            "launches": fr["launches"]["o3dt_fuse_blocks"],
+            "launches_by_path": by_path(("o3dt_fuse_blocks",), (
+                "make_fragments (phase 8)", "run_system (phase 13)",
+                "make_fragments_sharded (phase 14)", *later)),
             "parity_by_path": {"make_fragments (phase 9)": {k: k3_out[k] for k in
                                                             ("colour", "no_colour")},
                                "make_fragments_sharded (phase 14)": disk["k3"]},
@@ -4558,14 +4530,9 @@ def main(argv=None) -> int:
             "name": "integrate_blocks_v1", "route": "cuda",
             "source": "open3d_tpu_torch/csrc/integrate2.cu",
             "replaces": "open3d_tpu/ops/pallas/integrate.py:61",
-            "launches": launches_v1["integrate_blocks_v1"],
-            "launches_by_path": {"O3DTPU_INTEGRATE_V1 run (phase 5)":
-                                     launches_v1["integrate_blocks_v1"],
-                                 "post-processing (phase 15)":
-                                     post["launches"]["integrate_blocks_v1"],
-                                 PHASE16: toolbox["launches"]["integrate_blocks_v1"],
-                                 PHASE17: mlio["launches"]["integrate_blocks_v1"],
-                                 PHASE18: bench["launches"]["integrate_blocks_v1"]},
+            "launches": launches_v1["o3dt_integrate_blocks_v1"],
+            "launches_by_path": by_path(("o3dt_integrate_blocks_v1",), (
+                "O3DTPU_INTEGRATE_V1 run (phase 5)", *later)),
             "max_abs_err": k4_par["max_abs_err"],
             "ms": k4_ms, "kernel_ms": k4_ms, "cold_ms": k4_cold_ms, "plain_ms": k4_plain_ms,
             "spread_ms": k4_spread, "cold_spread_ms": k4_cold_spread, "times": MEDIAN_TIMES,
@@ -4576,21 +4543,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "open3d_tpu_torch/csrc/depth_filters.cu",
             "replaces": f"open3d_tpu/geometry/image.py:{line}",
-            "launches": launches[name],
-            "launches_by_path": {"slam_step (phase 5)": launches[name],
-                                 "O3DTPU_INTEGRATE_V1 run (phase 5)": launches_v1[name],
-                                 "make_fragments (phase 8)": fr["launches"][name],
-                                 "SLAM with normals (phase 11)":
-                                     surface["slam_normals"]["launches"][name],
-                                 "run_system (phase 13)": scene["launches"][name],
-                                 "run_system(mesh=...) from disk (phase 14)":
-                                     disk["launches"][name],
-                                 "slam command (phase 14)":
-                                     disk["slam_command"]["launches"][name],
-                                 "post-processing (phase 15)": post["launches"][name],
-                                 PHASE16: toolbox["launches"][name],
-                                 PHASE17: mlio["launches"][name],
-                                 PHASE18: bench["launches"][name]},
+            "launches": launches[f"o3dt_{name}"],
+            "launches_by_path": by_path((f"o3dt_{name}",), odometry_paths),
             "max_abs_err": df_rows[name]["parity"]["max_abs_err"],
             **{k: df_rows[name][k] for k in ("ms", "cold_ms", "plain_ms", "spread_ms",
                                              "cold_spread_ms", "bound_ms", "bound_by")},
@@ -4603,18 +4557,8 @@ def main(argv=None) -> int:
             "source": "open3d_tpu_torch/csrc/point_to_plane.cu",
             "replaces": "open3d_tpu_torch/pipelines/odometry.py's eager point-to-plane iteration "
                         "(open3d_tpu/pipelines/odometry.py:_gn_level, no Pallas kernel)",
-            "launches": gn_kernel_launches(launches)[name],
-            "launches_by_path": {path: gn_kernel_launches(counts)[name] for path, counts in (
-                ("slam_step (phase 5)", launches),
-                ("O3DTPU_INTEGRATE_V1 run (phase 5)", launches_v1),
-                ("make_fragments (phase 8)", fr["launches"]),
-                ("SLAM with normals (phase 11)", surface["slam_normals"]["launches"]),
-                ("run_system (phase 13)", scene["launches"]),
-                ("run_system(mesh=...) from disk (phase 14)", disk["launches"]),
-                ("slam command (phase 14)", disk["slam_command"]["launches"]),
-                ("post-processing (phase 15)", post["launches"]),
-                (PHASE16, toolbox["launches"]), (PHASE17, mlio["launches"]),
-                (PHASE18, bench["launches"]))},
+            "launches": launches[f"o3dt_{name}"],
+            "launches_by_path": by_path((f"o3dt_{name}",), odometry_paths),
             "gn_kernel_iterations_slam_step": sum(gn_iterations),
             "max_abs_err": gn_rows[name]["parity"].get("pose_abs_err", 0.0),
             **{k: gn_rows[name][k] for k in ("ms", "cold_ms", "plain_ms", "spread_ms",
@@ -4627,10 +4571,7 @@ def main(argv=None) -> int:
     ]
     for k in probe_kernels:
         k["launches_by_path"] = {"probes (phase 10)": k["launches"],
-                                 "post-processing (phase 15)": post["launches"][k["name"]],
-                                 PHASE16: toolbox["launches"][k["name"]],
-                                 PHASE17: mlio["launches"][k["name"]],
-                                 PHASE18: bench["launches"][k["name"]]}
+                                 **by_path(PROBE_ENTRIES[k["name"]], later)}
     log("[summary] " + json.dumps({"build_s": build_s, "stage_median_ms": medians,
                                    "slice": slice_res, "v1_slice": v1_res,
                                    "fragment": fr["fragment"],

@@ -158,14 +158,20 @@ extern "C" int o3dt_micro_raymarch(const void* tw, const void* rows, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of raymarch_kernel one multiprocessor holds at once, and the count of
-// multiprocessors: the waves over T tiles are ceil(T / (ctas * sms)).
-extern "C" int o3dt_micro_raymarch_occupancy(int* ctas_per_sm, int* sms) {
+// raymarch_kernel: out[0] CTAs one multiprocessor holds at once, out[1] the
+// count of multiprocessors (the waves over T tiles are ceil(T / (out[0] *
+// out[1]))), out[2] threads a CTA, out[3] registers a thread.
+extern "C" int o3dt_micro_raymarch_occupancy(int* out) {
   cudaError_t err = set_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  out[2] = kRays;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, raymarch_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[3] = attr.numRegs;
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, raymarch_kernel, kRays, kSmem));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], raymarch_kernel, kRays, kSmem));
 }

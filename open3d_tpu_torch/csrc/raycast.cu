@@ -367,9 +367,14 @@ cudaError_t launch(const MarchArgs& a, int T, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// out[0] <- CTAs a multiprocessor, out[3] <- registers a thread.
 template <int M>
-cudaError_t occupancy(int* ctas) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, march_kernel<M>, kRays, 0);
+cudaError_t occupancy(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, march_kernel<M>);
+  if (err != cudaSuccess) return err;
+  out[3] = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], march_kernel<M>, kRays, 0);
 }
 
 using LaunchFn = cudaError_t (*)(const MarchArgs&, int, cudaStream_t);
@@ -401,13 +406,17 @@ extern "C" int o3dt_march_tiles(
   return static_cast<int>(kLaunch[M - 1](a, T, static_cast<cudaStream_t>(stream)));
 }
 
-// CTAs of the march for M samples that one multiprocessor holds at once,
-// and the count of multiprocessors.
-extern "C" int o3dt_march_occupancy(int M, int* ctas_per_sm, int* sms) {
+// The march for M samples: out[0] CTAs that one multiprocessor holds at
+// once, out[1] the count of multiprocessors, out[2] threads a CTA, out[3]
+// registers a thread.
+extern "C" int o3dt_march_occupancy(int M, int* out) {
   if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  out[2] = kRays;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = kOccupancy[M - 1](ctas_per_sm);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) err = kOccupancy[M - 1](out);
   return static_cast<int>(err);
 }

@@ -13,10 +13,20 @@ PyTorch version, so half-pixel rounding ties and keep decisions come out
 the same in both.
 
 A build failure raises with nvcc's output. There is no fallback.
+
+Every kernel call goes through `launch`, which passes the device's current
+stream, raises on the returned error code and counts the call in
+`LAUNCHES` under its C entry name: one count is one call of that entry,
+whichever wrapper made it. It reads the stream as the raw handle
+(`torch._C._cuda_getCurrentRawStream`, as Triton's launcher does):
+`torch.cuda.current_stream(device).cuda_stream` builds a Stream object and
+took 4.26 us a call on the H100's host against 0.19 us, and a
+Gauss-Newton iteration makes two launches.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -25,6 +35,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -39,6 +51,7 @@ NVCC_FLAGS = [
 ]
 
 _lib: Optional[ctypes.CDLL] = None
+LAUNCHES = collections.Counter()  # C entry -> launches since reset_launches()
 
 
 def find_nvcc() -> str:
@@ -128,7 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,  # stream
     ]
     lib.o3dt_march_tiles.restype = I
-    lib.o3dt_march_occupancy.argtypes = [I, P, P]  # M, int* CTAs a multiprocessor, int* SMs
+    lib.o3dt_march_occupancy.argtypes = [I, P]  # M, int[4] out
     lib.o3dt_march_occupancy.restype = I
     lib.o3dt_fuse_blocks.argtypes = [
         P, P, P, P, P, P,  # tw, color, rows, tsdf_new, wn, cnew
@@ -153,7 +166,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_micro_gather_occupancy.restype = I
     lib.o3dt_micro_raymarch.argtypes = [P, P, P, I, I, P]  # tw, rows, out, T, C
     lib.o3dt_micro_raymarch.restype = I
-    lib.o3dt_micro_raymarch_occupancy.argtypes = [P, P]  # int* CTAs a multiprocessor, int* SMs
+    lib.o3dt_micro_raymarch_occupancy.argtypes = [P]  # int[4] out
     lib.o3dt_micro_raymarch_occupancy.restype = I
     lib.o3dt_probe_elementwise.argtypes = [P, P, I, I, I, I, I, P]  # x, out, kind, rows, cols, n_out, iters
     lib.o3dt_probe_elementwise.restype = I
@@ -201,6 +214,24 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
     return _lib
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the kernel entry `entry`(*args, stream) on the current stream of
+    `device` (a CUDA tensor's device, which names its index), raise on its
+    error code (check), and count it in LAUNCHES."""
+    check(getattr(load(), entry)(*args, torch._C._cuda_getCurrentRawStream(device.index)))
+    LAUNCHES[entry] += 1
+
+
+def launch_counts() -> collections.Counter:
+    """A copy of LAUNCHES: each C entry's launches since reset_launches()
+    (0 for an entry not launched)."""
+    return LAUNCHES.copy()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
 
 
 def occupancy(entry: str, *args) -> dict:

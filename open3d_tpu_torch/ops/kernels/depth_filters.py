@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import shift2d
 
@@ -107,43 +108,28 @@ def _check_image(name: str, depth: torch.Tensor) -> None:
 def bilateral_depth(depth: torch.Tensor, kernel_size: int = 5, sigma_space: float = 2.0,
                     sigma_depth: float = 0.05) -> torch.Tensor:
     """The bilateral filter of an (H, W) depth image. CUDA tensors (float32,
-    contiguous) launch the kernel and count one in
-    `bilateral_depth.launches`; CPU tensors run bilateral_depth_plain."""
+    contiguous) launch the kernel; CPU tensors run bilateral_depth_plain."""
     if depth.device.type == "cpu":
         return bilateral_depth_plain(depth, kernel_size, sigma_space, sigma_depth)
     _check_image("bilateral_depth", depth)
-    from open3d_tpu_torch.ops.kernels import _build
-
     H, W = depth.shape
     out = torch.empty_like(depth)
     inv2ss = 1.0 / (2.0 * sigma_space * sigma_space)
     inv2sd = 1.0 / (2.0 * sigma_depth * sigma_depth)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    _build.check(_build.load().o3dt_bilateral_depth(
-        depth.data_ptr(), out.data_ptr(), H, W, kernel_size // 2, inv2ss, inv2sd, stream))
-    bilateral_depth.launches += 1
+    _build.launch("o3dt_bilateral_depth", depth.device, depth.data_ptr(), out.data_ptr(), H, W,
+                  kernel_size // 2, inv2ss, inv2sd)
     return out
 
 
 def pyrdown_depth(depth: torch.Tensor, diff_threshold: float = 0.07) -> torch.Tensor:
     """The depth-aware pyrdown of an (H, W) depth image to (ceil(H/2),
-    ceil(W/2)). CUDA tensors (float32, contiguous) launch the kernel and
-    count one in `pyrdown_depth.launches`; CPU tensors run
-    pyrdown_depth_plain."""
+    ceil(W/2)). CUDA tensors (float32, contiguous) launch the kernel; CPU
+    tensors run pyrdown_depth_plain."""
     if depth.device.type == "cpu":
         return pyrdown_depth_plain(depth, diff_threshold)
     _check_image("pyrdown_depth", depth)
-    from open3d_tpu_torch.ops.kernels import _build
-
     H, W = depth.shape
     out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=torch.float32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    _build.check(_build.load().o3dt_pyrdown_depth(
-        depth.data_ptr(), gauss5(depth.device).data_ptr(), out.data_ptr(), H, W, diff_threshold,
-        stream))
-    pyrdown_depth.launches += 1
+    _build.launch("o3dt_pyrdown_depth", depth.device, depth.data_ptr(),
+                  gauss5(depth.device).data_ptr(), out.data_ptr(), H, W, diff_threshold)
     return out
-
-
-bilateral_depth.launches = 0
-pyrdown_depth.launches = 0

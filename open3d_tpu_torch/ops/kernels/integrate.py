@@ -50,6 +50,7 @@ from typing import Optional
 import torch
 
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels.integrate2 import _integrate_plain, _params
@@ -118,8 +119,7 @@ def integrate_blocks(
 ) -> None:
     """Sample and fuse M touched blocks in place. The dump row C stays zero.
 
-    CUDA tensors launch the kernel and count one in
-    `integrate_blocks.launches`; CPU tensors run integrate_blocks_plain_v1."""
+    CUDA tensors launch the kernel; CPU tensors run integrate_blocks_plain_v1."""
     dev = tw.device
     C1 = tw.shape[0]
     M = slots.shape[0]
@@ -144,21 +144,13 @@ def integrate_blocks(
         if dev.type != "cuda":
             raise ValueError(f"integrate_blocks: unsupported device {dev}")
 
-        from open3d_tpu_torch.ops.kernels import _build
-
-        lib = _build.load()
         params = _params(extrinsic, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.o3dt_integrate_blocks_v1(
+        _build.launch(
+            "o3dt_integrate_blocks_v1", dev,
             tw.data_ptr(), color.data_ptr() if color is not None else None,
             slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
             planes.data_ptr(), H, W, params.data_ptr(),
             intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
             voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
-            weight_max, stream,
+            weight_max,
         )
-        _build.check(err)
-        integrate_blocks.launches += 1
-
-
-integrate_blocks.launches = 0

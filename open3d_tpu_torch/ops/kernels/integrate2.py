@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
@@ -212,8 +213,7 @@ def integrate_blocks_v2(
     """Sample and fuse M touched blocks in place (the grid is not copied;
     the JAX package donated it instead). The dump row C stays zero.
 
-    CUDA tensors launch the kernel and count one in
-    `integrate_blocks_v2.launches`; CPU tensors run integrate_blocks_plain."""
+    CUDA tensors launch the kernel; CPU tensors run integrate_blocks_plain."""
     dev = tw.device
     C1 = tw.shape[0]
     M = slots.shape[0]
@@ -242,23 +242,14 @@ def integrate_blocks_v2(
         if dev.type != "cuda":
             raise ValueError(f"integrate_blocks_v2: unsupported device {dev}")
 
-        from open3d_tpu_torch.ops.kernels import _build
-
-        lib = _build.load()
         params = _params(extrinsic, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.o3dt_integrate_blocks(
-            tw.data_ptr(),
+        _build.launch(
+            "o3dt_integrate_blocks", dev, tw.data_ptr(),
             color.data_ptr() if color is not None else None,
             slots.data_ptr(), coords.data_ptr(), M, C1 - 1,
             d21.data_ptr(), rgb24.data_ptr() if rgb24 is not None else None, H, W,
             params.data_ptr(),
             intrinsic.fx, intrinsic.fy, intrinsic.cx, intrinsic.cy,
             voxel_size, voxel_size * _B, -sdf_trunc, 1.0 / sdf_trunc, depth_max,
-            depth_max / _D21, weight_max, stream,
+            depth_max / _D21, weight_max,
         )
-        _build.check(err)
-        integrate_blocks_v2.launches += 1
-
-
-integrate_blocks_v2.launches = 0

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 
 CONFIGS = ((32, 2048), (320, 2048), (32, 8192))  # (R, S_CHUNK), the script's
@@ -61,8 +62,8 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[s] = table.flat[idx[s]] for table (R, 128) float32 and idx (n, 1)
     int32 with every index in [0, R * 128).
 
-    CUDA tensors launch the kernel and count one in `gather.launches` (an
-    index out of range stops it with a device fault); CPU tensors run
+    CUDA tensors launch the kernel (an index out of range stops it with a
+    device fault); CPU tensors run
     gather_plain, after a check that raises on an index out of range."""
     dev = table.device
     if table.ndim != 2 or table.shape[1] != 128:
@@ -83,25 +84,15 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.data_ptr() % 16 or idx.data_ptr() % 16:
         raise ValueError("table and idx must start on a 16-byte boundary")
 
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
-    err = lib.o3dt_micro_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, idx.numel(),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err)
-    gather.launches += 1
+    _build.launch("o3dt_micro_gather", dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(), R,
+                  idx.numel())
     return out
-
-
-gather.launches = 0
 
 
 def occupancy(R: int) -> dict:
     """The kernel for an (R, 128) table on the card: CTAs a multiprocessor,
     multiprocessors, threads a CTA, registers a thread."""
-    from open3d_tpu_torch.ops.kernels import _build
-
     return _build.occupancy("o3dt_micro_gather_occupancy", R)
 
 

@@ -49,6 +49,7 @@ from typing import Sequence
 
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_aligned, check_tensor as _check
 
 ITERS_LO = 1000
@@ -295,8 +296,7 @@ def product(family: str, a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.
     the kernel's tiles do not take (_check_product_shape), and bases off
     the kernel's word size, on every device.
     CUDA tensors launch the kernel (the float32 one with its second launch
-    over a (K / 1024, M, N) scratch) and count one in `run_probe.launches`;
-    CPU tensors run the plain sum."""
+    over a (K / 1024, M, N) scratch); CPU tensors run the plain sum."""
     dtype = BF16 if family == "mma_bf16" else F32
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"{family}: a (M, K) and b (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -317,28 +317,20 @@ def product(family: str, a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.
     if a.device.type != "cuda":
         raise ValueError(f"{family}: unsupported device {a.device}")
 
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     out = torch.empty((M, N), dtype=F32, device=a.device)
     if family == "mma_bf16":
-        err = lib.o3dt_probe_mma_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, iters,
-                                      stream)
+        _build.launch("o3dt_probe_mma_bf16", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      M, K, N, iters)
     else:
         split = torch.empty((K // FFMA_K_CTA, M, N), dtype=F32, device=a.device)
-        err = lib.o3dt_probe_ffma(a.data_ptr(), b.data_ptr(), split.data_ptr(), out.data_ptr(),
-                                  M, K, N, iters, stream)
-    _build.check(err)
-    run_probe.launches += 1
+        _build.launch("o3dt_probe_ffma", a.device, a.data_ptr(), b.data_ptr(), split.data_ptr(),
+                      out.data_ptr(), M, K, N, iters)
     return out
 
 
 def occupancy(probe: Probe) -> dict:
     """A product probe's kernel: CTAs a multiprocessor, the card's
     multiprocessors, threads a CTA, registers a thread."""
-    from open3d_tpu_torch.ops.kernels import _build
-
     if probe.family not in _PRODUCTS:
         raise ValueError(f"{probe.name}: occupancy is reported for the products only")
     return _build.occupancy("o3dt_probe_occupancy", int(probe.family == "ffma"),
@@ -348,10 +340,9 @@ def occupancy(probe: Probe) -> dict:
 def run_probe(probe: Probe, inputs: list, iters: int) -> torch.Tensor:
     """sum_{i < iters} body(i, inputs) for one of PROBES.
 
-    CUDA tensors launch the kernel of the probe's family and count one in
-    `run_probe.launches` (a gather index out of [0, 128) stops it with a
-    device fault); CPU tensors run probe_plain, after a check that raises
-    on such an index."""
+    CUDA tensors launch the kernel of the probe's family (a gather index
+    out of [0, 128) stops it with a device fault); CPU tensors run
+    probe_plain, after a check that raises on such an index."""
     if probe not in PROBES:
         raise ValueError(f"not one of the probes: {probe}")
     dev = inputs[0].device if inputs else None
@@ -367,32 +358,22 @@ def run_probe(probe: Probe, inputs: list, iters: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"run_probe: unsupported device {dev}")
 
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(probe.out_shape, dtype=probe.out_dtype, device=dev)
     x = inputs[0]
     if probe.family == "elementwise":
         rows, cols = x.shape
-        err = lib.o3dt_probe_elementwise(x.data_ptr(), out.data_ptr(), _EW_CODE[probe.kind],
-                                         rows, cols, out.numel(), iters, stream)
+        args = (x.data_ptr(), out.data_ptr(), _EW_CODE[probe.kind], rows, cols, out.numel(), iters)
     elif probe.family == "gather":
-        err = lib.o3dt_probe_gather(x.data_ptr(), inputs[1].data_ptr(), out.data_ptr(),
-                                    x.shape[0], inputs[1].shape[1], iters, stream)
+        args = (x.data_ptr(), inputs[1].data_ptr(), out.data_ptr(), x.shape[0],
+                inputs[1].shape[1], iters)
     elif probe.family == "reduce":
         idx = inputs[1].data_ptr() if len(inputs) > 1 else None
-        err = lib.o3dt_probe_reduce(x.data_ptr(), idx, out.data_ptr(), _RED_CODE[probe.kind],
-                                    x.shape[0], x.shape[1], iters, stream)
+        args = (x.data_ptr(), idx, out.data_ptr(), _RED_CODE[probe.kind], x.shape[0], x.shape[1],
+                iters)
     else:
-        err = lib.o3dt_probe_onehot(x.data_ptr(), out.data_ptr(), x.shape[0], probe.out_shape[1],
-                                    iters, stream)
-    _build.check(err)
-    run_probe.launches += 1
+        args = (x.data_ptr(), out.data_ptr(), x.shape[0], probe.out_shape[1], iters)
+    _build.launch(f"o3dt_probe_{probe.family}", dev, *args)
     return out
-
-
-run_probe.launches = 0
 
 
 def tolerance(probe: Probe) -> float:

@@ -28,11 +28,10 @@ runs the script's size on the card and prints its lines.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
 
@@ -90,10 +89,9 @@ def march(rows: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """(T, 1, 256) float32 hit depths for rows (T, 8) int32, every row in
     [0, C), and tw (C, 32, 128) int32.
 
-    CUDA tensors launch the kernel and count one in `march.launches` (a row
-    out of range stops it with a device fault before its tile's first copy);
-    CPU tensors
-    run march_plain, after a check that raises on a row out of range."""
+    CUDA tensors launch the kernel (a row out of range stops it with a
+    device fault before its tile's first copy); CPU tensors run
+    march_plain, after a check that raises on a row out of range."""
     dev = tw.device
     if tw.ndim != 3 or tuple(tw.shape[1:]) != (32, 128):
         raise ValueError(f"tw: expected (C, 32, 128), got {tuple(tw.shape)}")
@@ -110,28 +108,16 @@ def march(rows: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     if tw.data_ptr() % 16:
         raise ValueError("tw must start on a 16-byte boundary (bulk copies)")
 
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
     out = torch.empty((rows.shape[0], 1, NR), dtype=torch.float32, device=dev)
-    err = lib.o3dt_micro_raymarch(tw.data_ptr(), rows.data_ptr(), out.data_ptr(), rows.shape[0],
-                                  tw.shape[0], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err)
-    march.launches += 1
+    _build.launch("o3dt_micro_raymarch", dev, tw.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                  rows.shape[0], tw.shape[0])
     return out
 
 
-march.launches = 0
-
-
-def occupancy() -> tuple:
-    """(CTAs of the kernel a multiprocessor holds, multiprocessors)."""
-    from open3d_tpu_torch.ops.kernels import _build
-
-    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(_build.load().o3dt_micro_raymarch_occupancy(ctypes.byref(per_sm),
-                                                             ctypes.byref(sms)))
-    return per_sm.value, sms.value
+def occupancy() -> dict:
+    """The kernel on the card: CTAs a multiprocessor, multiprocessors,
+    threads a CTA, registers a thread."""
+    return _build.occupancy("o3dt_micro_raymarch_occupancy")
 
 
 def parity(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -157,7 +143,8 @@ def main() -> None:
     if par["hit_agree"] < 1.0 or par["max_abs_dz"] > 1e-6:
         raise RuntimeError(f"march disagrees with march_plain: {par}")
     ms = device_ms(lambda: march(rows, tw), reps=20)
-    per_sm, sms = occupancy()
+    occ = occupancy()
+    per_sm, sms = occ["ctas_per_sm"], occ["sms"]
     print(f"raymarch inner T={T} K={K} M={M} ({T * K * M * NR / 1e6:.0f}M samples): {ms:.3f} ms "
           f"| {per_sm} CTA a multiprocessor, {-(-T // (per_sm * sms))} waves over {sms}",
           flush=True)

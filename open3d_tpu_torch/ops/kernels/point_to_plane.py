@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from open3d_tpu_torch.core import lie, linalg
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
 
@@ -119,10 +120,7 @@ class Level:
         self.src_pts, self.src_valid, self.tgt_vtx_nrm = src_pts, src_valid, tgt_vtx_nrm
         self.intr, self.trunc, self.delta = intr, trunc, delta
         if dev.type == "cuda":
-            from open3d_tpu_torch.ops.kernels import _build
-
-            lib = _build.load()
-            self.n_blocks = lib.o3dt_p2p_blocks(src_pts.shape[0])
+            self.n_blocks = _build.load().o3dt_p2p_blocks(src_pts.shape[0])
             self.partials = torch.empty((self.n_blocks, ROW), dtype=torch.float32, device=dev)
             self.rmse = torch.empty((), dtype=torch.float32, device=dev)
             H, W = tgt_vtx_nrm.shape[:2]
@@ -161,56 +159,39 @@ def residual_sums_plain(lv: Level, T):
     return _residual(r, w, valid)
 
 
-def _launch_sums(lv: Level, T: torch.Tensor, lib, stream) -> None:
+def _launch_sums(lv: Level, T: torch.Tensor) -> None:
     """The sums kernel: lv.partials <- each CTA's sums of the rows at T."""
-    from open3d_tpu_torch.ops.kernels import _build
-
-    _build.check(lib.o3dt_p2p_sums(*lv._sums_args, T.data_ptr(), *lv._sums_scalars, stream))
+    _build.launch("o3dt_p2p_sums", lv.device, *lv._sums_args, T.data_ptr(), *lv._sums_scalars)
 
 
-def _launch_solve(lv: Level, T: torch.Tensor, lib, stream) -> None:
+def _launch_solve(lv: Level, T: torch.Tensor) -> None:
     """The solve kernel: T <- exp(xi) T and lv.rmse from lv.partials."""
-    from open3d_tpu_torch.ops.kernels import _build
-
-    _build.check(lib.o3dt_p2p_solve(lv.partials.data_ptr(), lv.n_blocks, T.data_ptr(),
-                                    lv.rmse.data_ptr(), DAMPING, stream))
+    _build.launch("o3dt_p2p_solve", lv.device, lv.partials.data_ptr(), lv.n_blocks, T.data_ptr(),
+                  lv.rmse.data_ptr(), DAMPING)
 
 
 def iterate(lv: Level, T: torch.Tensor) -> torch.Tensor:
     """One Gauss-Newton iteration: T (4, 4) float32, on the level's device,
     <- exp(xi) T in place; returns the RMSE (0-d float32) of the rows at the
-    pose T had on entry. On a card: the sums kernel, then the solve kernel
-    (two launches, counted in `iterate.launches`); the RMSE is the level's
-    buffer, which the next call overwrites. On the CPU: iterate_plain."""
+    pose T had on entry. On a card: the sums kernel, then the solve kernel;
+    the RMSE is the level's buffer, which the next call overwrites. On the
+    CPU: iterate_plain."""
     lv.check_pose(T)
     if lv.device.type == "cpu":
         return iterate_plain(lv, T)
-    from open3d_tpu_torch.ops.kernels import _build
-
-    lib = _build.load()
-    stream = torch.cuda.current_stream(lv.device).cuda_stream
-    _launch_sums(lv, T, lib, stream)
-    _launch_solve(lv, T, lib, stream)
-    iterate.launches += 2
+    _launch_sums(lv, T)
+    _launch_solve(lv, T)
     return lv.rmse
 
 
 def residual_sums(lv: Level, T: torch.Tensor):
     """(sum of r^2 over w > 0, the valid count as float32), both 0-d, at
-    pose T: the odometry's final metrics. On a card: the sums kernel (one
-    launch, counted in `residual_sums.launches`), its CTAs' two words summed
-    by PyTorch; on the CPU: residual_sums_plain."""
+    pose T: the odometry's final metrics. On a card: the sums kernel, its
+    CTAs' two words summed by PyTorch; on the CPU: residual_sums_plain."""
     lv.check_pose(T)
     if lv.device.type == "cpu":
         return residual_sums_plain(lv, T)
-    from open3d_tpu_torch.ops.kernels import _build
-
-    _launch_sums(lv, T, _build.load(), torch.cuda.current_stream(lv.device).cuda_stream)
-    residual_sums.launches += 1
+    _launch_sums(lv, T)
     sum_r2 = torch.sum(lv.partials[:, SUM_R2], dtype=torch.float64).to(torch.float32)
     n_valid = torch.sum(lv.partials.view(torch.int32)[:, COUNT]).to(torch.float32)
     return sum_r2, n_valid
-
-
-iterate.launches = 0
-residual_sums.launches = 0

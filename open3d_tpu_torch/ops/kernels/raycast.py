@@ -47,6 +47,7 @@ import torch
 
 from open3d_tpu_torch.core import hashmap as hm
 from open3d_tpu_torch.core.masking import compact_indices
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
 from open3d_tpu_torch.utils.timer import host_read, span
@@ -347,8 +348,7 @@ def march_tiles(
     M: int = 6,
 ) -> torch.Tensor:
     """Pass 2: march every tile; returns the (H, W) hit depth (0 = miss).
-    CUDA tensors launch the kernel and count one in `march_tiles.launches`;
-    CPU tensors run march_tiles_plain."""
+    CUDA tensors launch the kernel; CPU tensors run march_tiles_plain."""
     if vbg.block_resolution != 16 or tuple(vbg.tw.shape[1:]) != (32, 128):
         raise ValueError("the march assumes 16^3 blocks with a (C+1, 32, 128) payload")
     H, W = intrinsic.height, intrinsic.width
@@ -377,39 +377,24 @@ def march_tiles(
         if dev.type != "cuda":
             raise ValueError(f"march_tiles: unsupported device {dev}")
 
-        from open3d_tpu_torch.ops.kernels import _build
-
-        lib = _build.load()
         params = _march_params(extrinsic, dev)
         out = torch.empty((H, W), dtype=torch.float32, device=dev)
         vs = vbg.voxel_size
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.o3dt_march_tiles(
+        _build.launch(
+            "o3dt_march_tiles", dev,
             vbg.tw.data_ptr(), rows.data_ptr(), lists.coords.data_ptr(), lists.nk.data_ptr(),
             lists.n_extra.data_ptr(), params.data_ptr(), out.data_ptr(),
             T, TW, H, W, K, M,
             intrinsic.cx, intrinsic.cy, 1.0 / intrinsic.fx, 1.0 / intrinsic.fy,
             vs, vs * 16, 1.0 / vs, 0.5 * vs, 2.0 * vs, 1.0 / M, depth_min, depth_max,
-            stream,
         )
-        _build.check(err)
-        march_tiles.launches += 1
     return out
 
 
-march_tiles.launches = 0
-
-
-def occupancy(M: int = 6) -> tuple:
-    """(CTAs of the march kernel for M samples a multiprocessor holds, the
-    card's multiprocessors)."""
-    import ctypes
-
-    from open3d_tpu_torch.ops.kernels import _build
-
-    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(_build.load().o3dt_march_occupancy(M, ctypes.byref(per_sm), ctypes.byref(sms)))
-    return per_sm.value, sms.value
+def occupancy(M: int = 6) -> dict:
+    """The march kernel for M samples on the card: CTAs a multiprocessor,
+    multiprocessors, threads a CTA, registers a thread."""
+    return _build.occupancy("o3dt_march_occupancy", M)
 
 
 def raycast_depth(

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_aligned
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.utils.timer import span
@@ -105,8 +106,7 @@ def fuse_blocks(
     fused when `cnew` is given, and then `color` must be too. Row C is not
     cleared here: callers re-zero it.
 
-    CUDA tensors launch the kernel and count one in `fuse_blocks.launches`;
-    CPU tensors run fuse_blocks_plain."""
+    CUDA tensors launch the kernel; CPU tensors run fuse_blocks_plain."""
     dev = tw.device
     if tw.ndim != 2:
         raise ValueError(f"tw: expected (C+1, B^3), got {tuple(tw.shape)}")
@@ -134,28 +134,17 @@ def fuse_blocks(
         if dev.type != "cuda":
             raise ValueError(f"fuse_blocks: unsupported device {dev}")
 
-        from open3d_tpu_torch.ops.kernels import _build
-
-        lib = _build.load()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.o3dt_fuse_blocks(
-            tw.data_ptr(), color.data_ptr() if color is not None else None,
+        _build.launch(
+            "o3dt_fuse_blocks", dev, tw.data_ptr(), color.data_ptr() if color is not None else None,
             rows.data_ptr(), tsdf_new.data_ptr(), wn.data_ptr(),
             cnew.data_ptr() if cnew is not None else None,
-            M, C1 - 1, B3, weight_max, stream,
+            M, C1 - 1, B3, weight_max,
         )
-        _build.check(err)
-        fuse_blocks.launches += 1
-
-
-fuse_blocks.launches = 0
 
 
 def occupancy(with_color: bool, B3: int) -> dict:
     """The kernel for this variant and row size on the card: CTAs a
     multiprocessor, multiprocessors, threads a CTA, registers a thread."""
-    from open3d_tpu_torch.ops.kernels import _build
-
     return _build.occupancy("o3dt_fuse_occupancy", int(with_color), B3)
 
 

@@ -13,8 +13,7 @@ builds, each level and the final metrics are the spans `odometry.pyramid`,
 `odometry.level` (attribute `level`) and `odometry.final`.
 
 Point-to-plane runs its iteration through `ops/kernels/point_to_plane.py`:
-on CUDA tensors two kernel launches an iteration (each such pass also
-counts one in `odometry.gn_kernel_iterations`) and one for the final
+on CUDA tensors two kernel launches an iteration and one for the final
 metrics, on CPU tensors the same steps in plain PyTorch. Intensity and
 hybrid run the eager loop `_gn_level`.
 
@@ -191,12 +190,9 @@ def _gn_level_point_to_plane(ld: _LevelData, T, criteria: OdometryConvergenceCri
     updates T in place (the two kernels on a card, plain PyTorch on the
     CPU); the same read of the RMSE and the same convergence rule."""
     lv = _p2p_level(ld, loss)
-    on_card = T.is_cuda
     prev_rmse = None
     for it in range(criteria.max_iteration):
         count("odometry.gn_iterations")
-        if on_card:
-            count("odometry.gn_kernel_iterations")
         rmse_h = host_read("odometry.rmse", p2p.iterate(lv, T))
         if it > 0 and abs(prev_rmse - rmse_h) < criteria.relative_rmse:
             break

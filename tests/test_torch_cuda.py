@@ -13,6 +13,8 @@ within micro_primitives.tolerance.
 import pytest
 import torch
 
+from open3d_tpu_torch.ops.kernels import _build
+
 pytestmark = pytest.mark.cuda
 
 
@@ -46,9 +48,9 @@ def test_integrate_kernel_matches_plain(scene):
         rows = torch.where(ok, slot, g.capacity).to(torch.int32)
         d21, rgb24 = k1.prepare_frame(d[i], c[i], 3.0)
         args = (rows, hm.unpack_coords(keys), d21, rgb24, intr, e[i], g.voxel_size, g.sdf_trunc, 3.0)
-        n = k1.integrate_blocks_v2.launches
+        n = _build.launch_counts()["o3dt_integrate_blocks"]
         k1.integrate_blocks_v2(g.tw, g.color, *args)
-        assert k1.integrate_blocks_v2.launches == n + 1
+        assert _build.launch_counts()["o3dt_integrate_blocks"] == n + 1
         k1.integrate_blocks_plain(tw_ref, col_ref, *args)
         torch.cuda.synchronize()
         assert torch.equal(g.tw, tw_ref) and torch.equal(g.color, col_ref)
@@ -61,9 +63,9 @@ def test_march_kernel_matches_plain(scene):
     g, d, c, e, intr = scene
     lists = k2.build_tile_lists(g, intr, e[1], 0.1, 3.0)
     rows = torch.where(lists.rows >= 0, lists.rows, g.capacity).to(torch.int32)
-    n = k2.march_tiles.launches
+    n = _build.launch_counts()["o3dt_march_tiles"]
     dk = k2.march_tiles(g, lists, intr, e[1], 0.1, 3.0)
-    assert k2.march_tiles.launches == n + 1
+    assert _build.launch_counts()["o3dt_march_tiles"] == n + 1
     dp = k2.march_tiles_plain(g.tw, rows, lists.coords, lists.nk, lists.n_extra, intr, e[1],
                               g.voxel_size, 0.1, 3.0)
     torch.cuda.synchronize()
@@ -140,9 +142,9 @@ def test_integrate_v1_kernel_matches_plain(scene):
         rows = torch.where(ok, slot, g.capacity).to(torch.int32)
         planes = k4.prepare_planes(d[i], c[i], True)
         args = (rows, hm.unpack_coords(keys), planes, intr, e[i], g.voxel_size, g.sdf_trunc, 3.0)
-        n = k4.integrate_blocks.launches
+        n = _build.launch_counts()["o3dt_integrate_blocks_v1"]
         k4.integrate_blocks(tw, col, *args)
-        assert k4.integrate_blocks.launches == n + 1
+        assert _build.launch_counts()["o3dt_integrate_blocks_v1"] == n + 1
         k4.integrate_blocks_plain_v1(tw_ref, col_ref, *args)
         torch.cuda.synchronize()
         assert torch.equal(tw, tw_ref) and torch.equal(col, col_ref)
@@ -175,9 +177,9 @@ def test_fuse_kernel_matches_plain(cuda, B, M, with_color):
     before = a[0].clone()
     if not with_color:
         a[1] = a[5] = b[1] = b[5] = None
-    n = k3.fuse_blocks.launches
+    n = _build.launch_counts()["o3dt_fuse_blocks"]
     k3.fuse_blocks(*a)
-    assert k3.fuse_blocks.launches == n + 1
+    assert _build.launch_counts()["o3dt_fuse_blocks"] == n + 1
     k3.fuse_blocks_plain(*b)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0])
@@ -225,9 +227,9 @@ def test_micro_gather_kernel_matches_plain(cuda):
     # grid-stride round and off a 16-byte step; the script's index count
     for R, n in [(32, 4099), (320, 1 << 16), (320, 5 * 16384 + 4101), (320, 12_000_000)]:
         table, idx = p2.make_inputs(R, n, gen, cuda)
-        count = p2.gather.launches
+        count = _build.launch_counts()["o3dt_micro_gather"]
         out = p2.gather(table, idx)
-        assert p2.gather.launches == count + 1
+        assert _build.launch_counts()["o3dt_micro_gather"] == count + 1
         torch.cuda.synchronize()
         assert torch.equal(out, p2.gather_plain(table, idx))
 
@@ -236,13 +238,60 @@ def test_micro_raymarch_kernel_matches_plain(cuda):
     from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
 
     tw, rows = p3.make_inputs(torch.Generator(device=cuda).manual_seed(3), cuda, T=300, C=512)
-    count = p3.march.launches
+    count = _build.launch_counts()["o3dt_micro_raymarch"]
     out = p3.march(rows, tw)
-    assert p3.march.launches == count + 1
+    assert _build.launch_counts()["o3dt_micro_raymarch"] == count + 1
     torch.cuda.synchronize()
     ref = p3.march_plain(rows, tw)
     assert torch.equal(out, ref)
     assert p3.parity(out, ref)["hit_frac"] > 0.5
+
+
+def test_launch_takes_the_current_stream(cuda, monkeypatch):
+    """_build.launch passes the handle of the stream current on the
+    tensors' device, inside a side stream's context as well."""
+    from open3d_tpu_torch.ops.kernels import depth_filters as df
+
+    seen = []
+    lib = _build.load()
+    entry = lib.o3dt_pyrdown_depth
+
+    def spy(*args):
+        seen.append(args[-1])
+        return entry(*args)
+
+    monkeypatch.setattr(lib, "o3dt_pyrdown_depth", spy)
+    d = torch.rand((48, 64), device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    df.pyrdown_depth(d)
+    with torch.cuda.stream(side):
+        out = df.pyrdown_depth(d)
+    side.synchronize()
+    assert seen == [torch.cuda.current_stream(cuda).cuda_stream, side.cuda_stream]
+    assert torch.equal(out, df.pyrdown_depth_plain(d))
+
+
+def test_occupancy_queries_fill_the_same_four_fields(cuda):
+    """Every kernel's occupancy query reports, through _build.occupancy,
+    its CTAs a multiprocessor, the multiprocessors, its threads a CTA and
+    its registers a thread."""
+    from open3d_tpu_torch.ops.kernels import micro_gather as p2
+    from open3d_tpu_torch.ops.kernels import micro_primitives as p1
+    from open3d_tpu_torch.ops.kernels import micro_raymarch as p3
+    from open3d_tpu_torch.ops.kernels import raycast as k2
+    from open3d_tpu_torch.ops.kernels import tsdf as k3
+
+    occs = [k2.occupancy(1), k2.occupancy(6), k2.occupancy(16), p3.occupancy(),
+            k3.occupancy(True, 512), p2.occupancy(32),
+            p1.occupancy(p1.BY_NAME["matmul bf16 (2048,128)@(128,128)"])]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for occ in occs:
+        assert set(occ) == {"ctas_per_sm", "sms", "threads", "registers"}, occ
+        assert occ["sms"] == sms and min(occ.values()) > 0, occ
+    assert occs[1]["threads"] == occs[3]["threads"] == 256
+    with pytest.raises(RuntimeError):
+        k2.occupancy(17)
 
 
 @pytest.mark.parametrize("name", [
@@ -260,9 +309,10 @@ def test_micro_primitives_kernel_matches_plain(cuda, name):
     torch.backends.cuda.matmul.allow_tf32 = False
     probe = p1.BY_NAME[name]
     ins = p1.make_inputs(probe, torch.Generator(device=cuda).manual_seed(4), cuda)
-    count = p1.run_probe.launches
+    entry = f"o3dt_probe_{probe.family}"
+    count = _build.launch_counts()[entry]
     out = p1.run_probe(probe, ins, 50)
-    assert p1.run_probe.launches == count + 1
+    assert _build.launch_counts()[entry] == count + 1
     torch.cuda.synchronize()
     ref = p1.probe_plain(probe, ins, 50)
     if p1.tolerance(probe) == 0.0:
@@ -346,10 +396,10 @@ def test_product_refuses_a_misaligned_base_on_the_card(cuda, family, M, K, N):
     dtype = torch.bfloat16 if family == "mma_bf16" else torch.float32
     a = torch.zeros(M * K + 1, dtype=dtype, device=cuda)[1:].view(M, K)
     b = torch.zeros((K, N), dtype=dtype, device=cuda)
-    count = p1.run_probe.launches
+    count = _build.launch_counts()
     with pytest.raises(ValueError, match="aligned"):
         p1.product(family, a, b, 1)
-    assert p1.run_probe.launches == count
+    assert _build.launch_counts() == count
     out = p1.product(family, a.clone(), b, 1)
     torch.cuda.synchronize()
     assert not bool(out.any())
@@ -381,9 +431,9 @@ def test_raycast_maps_on_the_march_match_a_cpu_copy(fused):
     from open3d_tpu_torch.ops.kernels import raycast as k2
 
     g, cpu, e, intr = fused
-    n = k2.march_tiles.launches
+    n = _build.launch_counts()["o3dt_march_tiles"]
     res = vbg.raycast(g, intr, e[1], with_color=True, with_normals=True, with_index_ratio=True)
-    assert k2.march_tiles.launches == n + 1
+    assert _build.launch_counts()["o3dt_march_tiles"] == n + 1
     ref = vbg._maps_on_depth(cpu, intr, e[1].cpu(), res.depth.cpu(), 3.0, True, True, True)
     assert torch.equal(res.index.cpu(), ref.index) and torch.equal(res.mask.cpu(), ref.mask)
     for name in ("vertex", "color", "normal", "interp_ratio"):
@@ -400,11 +450,11 @@ def test_sphere_trace_on_the_card_matches_a_cpu_copy(fused):
     from open3d_tpu_torch.ops.kernels import raycast as k2
 
     g, cpu, e, intr = fused
-    n = k2.march_tiles.launches
+    n = _build.launch_counts()["o3dt_march_tiles"]
     use = None if g.block_resolution != 16 else False
     res = vbg.raycast(g, intr, e[1], use_pallas=use, with_normals=True)
     ref = vbg.raycast(cpu, intr, e[1].cpu(), use_pallas=use, with_normals=True)
-    assert k2.march_tiles.launches == n
+    assert _build.launch_counts()["o3dt_march_tiles"] == n
     mk, mc = res.mask.cpu(), ref.mask
     assert float(mk.float().mean()) > 0.5 and float((mk == mc).float().mean()) >= 0.999
     dz = (res.depth.cpu() - ref.depth).abs()[mk & mc]

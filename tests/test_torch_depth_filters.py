@@ -18,7 +18,14 @@ import pytest
 import torch
 
 from open3d_tpu_torch.geometry import image as im
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels import depth_filters as df
+
+
+def _filter_launches() -> tuple:
+    """The bilateral filter's and the pyrdown's launches so far."""
+    c = _build.launch_counts()
+    return c["o3dt_bilateral_depth"], c["o3dt_pyrdown_depth"]
 
 
 def _steps(x: float, n: int) -> list:
@@ -67,7 +74,7 @@ def test_cpu_tensors_take_the_plain_path(name):
     """image.py's callers on CPU tensors: the plain versions' bits, no
     launch counted by either wrapper."""
     d = holey_depth(120, 160, seed=3)
-    before = (df.bilateral_depth.launches, df.pyrdown_depth.launches)
+    before = _filter_launches()
     if name == "filter_bilateral_depth":
         got, want = [im.filter_bilateral_depth(d)], [df.bilateral_depth_plain(d)]
     elif name == "pyrdown_depth":
@@ -77,7 +84,7 @@ def test_cpu_tensors_take_the_plain_path(name):
         want = [d, df.pyrdown_depth_plain(d)]
         want.append(df.pyrdown_depth_plain(want[-1]))
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == len(want)
-    assert (df.bilateral_depth.launches, df.pyrdown_depth.launches) == before
+    assert _filter_launches() == before
 
 
 @pytest.mark.parametrize("fn", [df.bilateral_depth, df.pyrdown_depth], ids=lambda f: f.__name__)
@@ -156,18 +163,19 @@ class TestOnCard:
     ], ids=["float64", "non_contiguous", "3d"])
     def test_wrappers_refuse_bad_inputs(self, cuda, fn, bad, err):
         d = holey_depth(16, 24).to(cuda)
-        n = fn.launches
+        n = _build.launch_counts()
         with pytest.raises(err):
             fn(bad(d))
-        assert fn.launches == n
+        assert _build.launch_counts() == n
 
     def test_launches_count_one_per_call(self, cuda):
         d = holey_depth(48, 64).to(cuda)
-        nb, npd = df.bilateral_depth.launches, df.pyrdown_depth.launches
+        nb, npd = _filter_launches()
         df.bilateral_depth(d)
         df.bilateral_depth(d)
         df.pyrdown_depth(d)
-        assert (df.bilateral_depth.launches - nb, df.pyrdown_depth.launches - npd) == (2, 1)
+        b, p = _filter_launches()
+        assert (b - nb, p - npd) == (2, 1)
 
     @pytest.mark.parametrize("name", ["filter_bilateral_depth", "pyrdown_depth"])
     def test_image_filters_take_any_layout(self, cuda, name):
@@ -175,12 +183,12 @@ class TestOnCard:
         strided view, as the loops they replace took any layout."""
         d = holey_depth(97, 131, seed=7).to(cuda)
         view = d.t()
-        n = df.bilateral_depth.launches + df.pyrdown_depth.launches
+        n = sum(_filter_launches())
         got = getattr(im, name)(view)
         plain = (df.bilateral_depth_plain if name == "filter_bilateral_depth"
                  else df.pyrdown_depth_plain)
         assert torch.equal(got, plain(view.contiguous()))
-        assert df.bilateral_depth.launches + df.pyrdown_depth.launches - n == 1
+        assert sum(_filter_launches()) - n == 1
 
     def test_tracking_pose_is_the_plain_filters_pose(self, cuda, monkeypatch):
         """track_frame_to_model through the kernels (ten launches: two
@@ -193,14 +201,14 @@ class TestOnCard:
         depths, _, _, intr = synthetic.render_sequence(
             2, intrinsic=PinholeCameraIntrinsic.prime_sense_default(), span=0.1, device=cuda)
         model = dense_slam.create_model(dense_slam.SLAMConfig(block_count=1024), device=cuda)
-        n = df.bilateral_depth.launches + df.pyrdown_depth.launches
+        n = sum(_filter_launches())
         got = dense_slam.track_frame_to_model(model, depths[1].contiguous(),
                                               depths[0].contiguous(), intr)
-        assert df.bilateral_depth.launches + df.pyrdown_depth.launches - n == 10
+        assert sum(_filter_launches()) - n == 10
         monkeypatch.setattr(im, "filter_bilateral_depth", df.bilateral_depth_plain)
         monkeypatch.setattr(im, "pyrdown_depth", df.pyrdown_depth_plain)
         want = dense_slam.track_frame_to_model(model, depths[1].contiguous(),
                                                depths[0].contiguous(), intr)
-        assert df.bilateral_depth.launches + df.pyrdown_depth.launches - n == 10
+        assert sum(_filter_launches()) - n == 10
         assert torch.equal(got.transformation, want.transformation)
         assert torch.equal(got.fitness, want.fitness)

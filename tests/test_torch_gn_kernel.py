@@ -27,6 +27,7 @@ from open3d_tpu_torch.data import synthetic
 from open3d_tpu_torch.geometry import image as im
 from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
 from open3d_tpu_torch.geometry.rgbd import RGBDImage
+from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
 from open3d_tpu_torch.pipelines import odometry as odom
 from open3d_tpu_torch.utils import timer as tm
@@ -103,10 +104,10 @@ def test_twin_is_the_eager_iteration(cpu_frames, lvl, pose, monkeypatch):
     T0 = torch.eye(4) if pose == "identity" else lie.se3_exp(XI).float()
     want_T, want_rmse = eager_iteration(ld, T0.clone(), monkeypatch)
     T = T0.clone()
-    n = p2p.iterate.launches
+    n = _build.launch_counts()
     rmse = p2p.iterate(level_of(ld), T)
     assert torch.equal(T, want_T) and torch.equal(rmse, want_rmse)
-    assert p2p.iterate.launches == n
+    assert _build.launch_counts() == n
 
 
 def test_cpu_tensors_take_the_plain_path(cpu_frames):
@@ -114,13 +115,13 @@ def test_cpu_tensors_take_the_plain_path(cpu_frames):
     ld = cpu_frames[2][0]
     T0 = lie.se3_exp(XI).float()
     lv = level_of(ld)
-    n = (p2p.iterate.launches, p2p.residual_sums.launches)
+    n = _build.launch_counts()
     T, T_plain = T0.clone(), T0.clone()
     assert torch.equal(p2p.iterate(lv, T), p2p.iterate_plain(lv, T_plain))
     assert torch.equal(T, T_plain) and not torch.equal(T, T0)
     for a, b in zip(p2p.residual_sums(lv, T), p2p.residual_sums_plain(lv, T)):
         assert torch.equal(a, b)
-    assert (p2p.iterate.launches, p2p.residual_sums.launches) == n
+    assert _build.launch_counts() == n
 
 
 @pytest.mark.parametrize("init", [None, "moved"])
@@ -167,21 +168,22 @@ def test_wrapper_refuses_bad_inputs(field, bad, err):
     args[field] = bad(args[field])
     if field == "src_pts" and args[field].device.type == "meta":
         args = {k: v.to("meta") for k, v in args.items()}
-    n = p2p.iterate.launches
+    n = _build.launch_counts()
     with pytest.raises(err):
         lv = p2p.Level(args["src_pts"], args["src_valid"], args["tgt_vtx_nrm"], INTR_CPU,
                        0.07, 0.05)
         p2p.iterate(lv, args["T"])
-    assert p2p.iterate.launches == n
+    assert _build.launch_counts() == n
 
 
 @pytest.mark.parametrize("method", [odom.POINT_TO_PLANE, odom.HYBRID, odom.INTENSITY])
 def test_kernel_counter_reads_zero_on_the_cpu(cpu_frames, method):
-    """The recorder counts Gauss-Newton passes, and no kernel pass, for
-    every method on CPU tensors."""
+    """The recorder counts Gauss-Newton passes, and the solve kernel no
+    launch, for every method on CPU tensors."""
     depths, colors = cpu_frames[0], cpu_frames[1]
     src = RGBDImage(color=colors[1], depth=depths[1])
     tgt = RGBDImage(color=colors[0], depth=depths[0])
+    solves = _build.launch_counts()["o3dt_p2p_solve"]
     tm.disable()
     tm.drain()
     tm.enable()
@@ -191,7 +193,7 @@ def test_kernel_counter_reads_zero_on_the_cpu(cpu_frames, method):
         tm.disable()
     counts = tm.drain()[1]
     assert counts["odometry.gn_iterations"] >= 3
-    assert counts.get("odometry.gn_kernel_iterations", 0) == 0
+    assert _build.launch_counts()["o3dt_p2p_solve"] == solves
 
 
 # ---- the card: the kernels --------------------------------------------------
@@ -316,10 +318,7 @@ class TestOnCard:
         T0 = lie.se3_exp(torch.tensor([0.3, -0.2, 0.1, 0.5, -0.7, 1.2], dtype=torch.float64))
         T = T0.float().to(dev)
         T_in = T.double().cpu()
-        from open3d_tpu_torch.ops.kernels import _build
-
-        lib = _build.load()
-        p2p._launch_solve(lv, T, lib, torch.cuda.current_stream().cuda_stream)
+        p2p._launch_solve(lv, T)
         torch.cuda.synchronize()
         s = part[:, :28].double().sum(0)
         JtJ = torch.zeros((6, 6), dtype=torch.float64)
@@ -365,15 +364,17 @@ class TestOnCard:
                 tm.disable()
             return res, tm.drain()[1]
 
-        n = (p2p.iterate.launches, p2p.residual_sums.launches)
+        n = _build.launch_counts()
         got, counts = run()
         its = counts["odometry.gn_iterations"]
-        assert counts["odometry.gn_kernel_iterations"] == its
-        assert (p2p.iterate.launches - n[0], p2p.residual_sums.launches - n[1]) == (2 * its, 1)
+        launched = _build.launch_counts() - n
+        assert launched["o3dt_p2p_solve"] == its
+        assert (launched["o3dt_p2p_sums"], launched["o3dt_p2p_solve"]) == (its + 1, its)
         eager_odometry(monkeypatch)
+        n = _build.launch_counts()
         want, eager_counts = run()
         assert eager_counts["odometry.gn_iterations"] == its
-        assert eager_counts.get("odometry.gn_kernel_iterations", 0) == 0
+        assert (_build.launch_counts() - n)["o3dt_p2p_solve"] == 0
         rot, trans = lie.pose_distance(got.transformation.double(), want.transformation.double())
         assert float(rot) <= 1e-6 and float(trans) <= 1e-6, (float(rot), float(trans))
         assert abs(float(got.fitness) - float(want.fitness)) <= 1e-4
@@ -396,8 +397,7 @@ class TestOnCard:
         depths, colors = card_frames[0], card_frames[1]
         src = RGBDImage(color=colors[1], depth=depths[1])
         tgt = RGBDImage(color=colors[0], depth=depths[0])
-        wrappers = (p2p.iterate, p2p.residual_sums)
-        n = [f.launches for f in wrappers]
+        n = _build.launch_counts()
         a = odom.rgbd_odometry_multi_scale(src, tgt, INTR, method=method)
 
         def refuse(*a, **k):
@@ -407,6 +407,7 @@ class TestOnCard:
                           (p2p, "residual_sums"), (p2p, "Level")):
             monkeypatch.setattr(mod, name, refuse)
         b = odom.rgbd_odometry_multi_scale(src, tgt, INTR, method=method)
-        assert [f.launches for f in wrappers] == n
+        launched = _build.launch_counts() - n
+        assert (launched["o3dt_p2p_sums"], launched["o3dt_p2p_solve"]) == (0, 0)
         for x, y in zip(a.__dict__.values(), b.__dict__.values()):
             assert torch.equal(x, y)

@@ -5,6 +5,7 @@ nvcc is missing; the kernel wrappers refuse inputs the kernels do not take;
 chip_smoke.py fails without a card."""
 
 import ast
+import collections
 import os
 import subprocess
 import sys
@@ -228,6 +229,36 @@ def test_kernel_sources_present():
                      "micro_primitives.cu", "micro_raymarch.cu", "point_to_plane.cu", "raycast.cu",
                      "tsdf.cu"]
     assert len(_build.source_hash()) == 16
+
+
+def test_launch_checks_and_counts_by_entry(monkeypatch):
+    """_build.launch calls its entry with the device's current stream last,
+    counts the call under the entry's name once it returns 0, raises with
+    the library's message on an error code without counting it, and
+    reset_launches clears the counts."""
+    codes, calls = [0, 2], []
+
+    class FakeLib:
+        def o3dt_fake(self, *args):
+            calls.append(args)
+            return codes.pop(0)
+
+        def o3dt_error_string(self, err):
+            return b"fake failure"
+
+    monkeypatch.setattr(_build, "_lib", FakeLib())
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    streams = {0: 1234}
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", streams.__getitem__,
+                        raising=False)
+    _build.launch("o3dt_fake", torch.device("cuda", 0), 7, 2.5)
+    assert calls == [(7, 2.5, 1234)]
+    assert _build.launch_counts() == {"o3dt_fake": 1}
+    with pytest.raises(RuntimeError, match="fake failure"):
+        _build.launch("o3dt_fake", torch.device("cuda", 0), 8)
+    assert len(calls) == 2 and _build.launch_counts() == {"o3dt_fake": 1}
+    _build.reset_launches()
+    assert _build.launch_counts() == {} and _build.launch_counts()["o3dt_fake"] == 0
 
 
 @pytest.mark.parametrize("path", sorted((PKG / "ops" / "kernels").glob("*.py")),
