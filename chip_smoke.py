@@ -30,8 +30,10 @@ Phases:
      timed warm and cold; then the point-to-plane Gauss-Newton kernels
      (sums, solve) at those levels against float64 sums of the plain rows
      and a float64 solve, timed warm and cold, the whole iteration beside
-     the eager one it replaces (--kernels-only then times K3 on a synthetic
-     fragment work list and P2 at the script's three sizes, and stops);
+     the eager one it replaces; then the point-to-plane maps kernel at
+     those levels and at 80x60 against maps_plain, bit for bit, timed warm
+     and cold (--kernels-only then times K3 on a synthetic fragment work
+     list and P2 at the script's three sizes, and stops);
   5. the SLAM slice: slam_step over the 8-frame bench orbit at that
      configuration, pose-gated on frames 0-3 (the reference loses track
      from frame 4 too), then over the first half of that orbit, held on
@@ -47,8 +49,9 @@ Phases:
      here and in phases 11, 14 and 18) launches the sums and the solve
      kernel, one solve for each iteration the program's recorder counts
      (`odometry.gn_iterations`), and its final metrics
-     the sums once more; the hybrid odometry of phases 8, 13, 14 and 18
-     launches neither;
+     the sums once more, and the maps kernel once a level and once for the
+     final metrics (4); the hybrid odometry of phases 8, 13, 14 and 18
+     launches none of them;
   6. per-stage times of the frame step (CUDA events, after warm-up), peak
      device memory;
   7. with --profile: torch.profiler over the steady frame step (device
@@ -230,8 +233,10 @@ DF_OPS_TAP = {"bilateral_depth": 10, "pyrdown_depth": 7}
 DF_PER_ODOMETRY = {"o3dt_bilateral_depth": 6, "o3dt_pyrdown_depth": 4}
 # The point-to-plane Gauss-Newton kernels (csrc/point_to_plane.cu): the
 # sums and the solve an iteration, the sums once more an odometry's final
-# metrics
-GN_KERNELS = ("o3dt_p2p_sums", "o3dt_p2p_solve")
+# metrics; and the maps kernel that builds their inputs, once a level and
+# once for the final metrics (MAPS_PER_ODOMETRY in a 3-level odometry)
+GN_KERNELS = ("o3dt_p2p_sums", "o3dt_p2p_solve", "o3dt_p2p_maps")
+MAPS_PER_ODOMETRY = 4
 # their bars: the sums within 1e-5 of their terms' magnitudes' sum of the
 # float64 sums of the plain rows, the valid count exact; the solve's pose
 # within 2 float32 ulp at 1 of the float64 solve_gn_6x6 + se3_exp
@@ -239,6 +244,12 @@ GN_TOL = dict(sums_rel_err=1e-5, count_mismatch=0, pose_abs_err=2.4e-7)
 # their float32 operations a pixel whose row is used: the transform 18, the
 # projection 7, |n|^2 5, r 8, the weight 3, J 9, J w 6, the 28 sums 56
 GN_OPS_PIXEL = 112
+# the maps kernel's a pixel: four vertices 24 (the source's, the target's
+# and its two neighbours'), the differences 6, the cross product 9, the
+# norm 7, the division 3, the orientation 5; it is held bit for bit against
+# maps_plain (vertices, validity, normals)
+MAPS_OPS_PIXEL = 54
+MAPS_TOL = dict(mismatch=0, max_abs_err=0.0)
 # K2 likewise: every ray hits or misses as in the plain version, at the same
 # depth; the JAX package's bars (median error under a voxel, in-range miss
 # under 0.08) are the outer limit
@@ -419,10 +430,11 @@ class Recorded:
 def check_gn_kernels(launches: dict, counts, n_odometry: int, what: str) -> int:
     """Hold the point-to-plane kernels' launches to the recorder's `counts`:
     one solve for each Gauss-Newton iteration (`odometry.gn_iterations`) of
-    the `n_odometry` point-to-plane odometries, and one sums for each solve
-    and for each odometry's final metrics. A path of hybrid odometry alone
-    (n_odometry 0; counts None where the recorder was off) launches
-    neither. Returns the kernel iterations."""
+    the `n_odometry` point-to-plane odometries, one sums for each solve and
+    for each odometry's final metrics, and MAPS_PER_ODOMETRY maps for each
+    odometry. A path of hybrid odometry alone (n_odometry 0; counts None
+    where the recorder was off) launches none of them. Returns the kernel
+    iterations."""
     its = launches["o3dt_p2p_solve"]
     if n_odometry:
         check(its > 0 and its == counts.get("odometry.gn_iterations"),
@@ -432,6 +444,9 @@ def check_gn_kernels(launches: dict, counts, n_odometry: int, what: str) -> int:
     check(launches["o3dt_p2p_sums"] == its + n_odometry,
           f"{what}: Gauss-Newton kernel launches {launches}, sums for {its} kernel iterations "
           f"and {n_odometry} odometries")
+    check(launches["o3dt_p2p_maps"] == MAPS_PER_ODOMETRY * n_odometry,
+          f"{what}: maps kernel launches {launches}, {MAPS_PER_ODOMETRY} for each of "
+          f"{n_odometry} odometries")
     return its
 
 
@@ -872,6 +887,71 @@ def gn_kernel_times(dev) -> dict:
                                 for k in top["parity"]},
                      "by_shape": by_shape}
     return out
+
+
+def maps_kernel_times(dev) -> dict:
+    """The point-to-plane maps kernel at the shapes tracking gives it: the
+    three levels of a tracked 640x480 pair of the bench orbit and the
+    coarsest level at model stride 2 (80x60), the depths bilateral-filtered
+    as the odometry filters them. At each shape the kernel is held bit for
+    bit against maps_plain on the card (source points, validity, target
+    rows), with the normals computed and given (a normal pyramid, as a
+    raycast's feeds it), then timed warm and cold beside one reading of
+    maps_plain, with both on the host's clock (synchronised), and its bound
+    by its bytes (8 B read and 37 B written a pixel) and operations
+    (MAPS_OPS_PIXEL). Returns its row at each shape under "WxH" and the
+    640x480 row's figures at its top."""
+    import torch
+
+    from open3d_tpu_torch.data import synthetic
+    from open3d_tpu_torch.geometry import image as im
+    from open3d_tpu_torch.geometry.camera import PinholeCameraIntrinsic
+    from open3d_tpu_torch.ops.kernels import point_to_plane as p2p
+    from open3d_tpu_torch.ops.kernels._timing import cold_ms, device_ms, median_of
+
+    intr = PinholeCameraIntrinsic.prime_sense_default()
+    depths = synthetic.render_sequence(2, intrinsic=intr, span=0.1, device=dev)[0]
+    src_pyr = im.build_depth_pyramid(depths[1].contiguous(), 4)
+    tgt_pyr = im.build_depth_pyramid(depths[0].contiguous(), 4)
+    nrm_pyr = im.build_normal_pyramid(
+        im.create_normal_map(im.create_vertex_map(depths[0].contiguous(), intr)), 4)
+    sync = torch.cuda.synchronize
+    rows = {}
+    for lvl in range(4):
+        il = intr.scaled(0.5**lvl)
+        sd = im.filter_bilateral_depth(src_pyr[lvl])
+        td = im.filter_bilateral_depth(tgt_pyr[lvl])
+        H, W = sd.shape
+        shape = f"{W}x{H}"
+        mismatch, err = 0, 0.0
+        for nrm in (None, nrm_pyr[lvl]):
+            got, want = p2p.maps(sd, td, il, nrm), p2p.maps_plain(sd, td, il, nrm)
+            sync()
+            mismatch += sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                            for a, b in zip(got, want))
+            err = max(err, *(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(got, want)))
+        check(mismatch == 0, f"maps kernel bit parity at {shape}: {mismatch} bytes differ")
+        row = {"parity": {"mismatch": mismatch, "max_abs_err": err}, "valid": int(got[1].sum())}
+        for key, timer, reps in (("ms", device_ms, 200), ("cold_ms", cold_ms, 20)):
+            row[key], row[key.replace("ms", "spread_ms")] = median_of(
+                lambda: timer(lambda: p2p.maps(sd, td, il), reps=reps))
+        row["plain_ms"] = device_ms(lambda: p2p.maps_plain(sd, td, il), reps=5)
+        row["host_ms"] = statistics.median(
+            host_ms(lambda: p2p.maps(sd, td, il), sync)[1] for _ in range(20))
+        row["plain_host_ms"] = statistics.median(
+            host_ms(lambda: p2p.maps_plain(sd, td, il), sync)[1] for _ in range(5))
+        n_bytes, n_ops = 45 * H * W, MAPS_OPS_PIXEL * H * W
+        row["bytes"], row["ops"] = n_bytes, n_ops
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
+        log(f"[4] maps kernel p2p_maps {shape} {row}")
+        rows[shape] = row
+    top = rows["640x480"]
+    return {**{k: top[k] for k in ("ms", "spread_ms", "cold_ms", "cold_spread_ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+            "parity": {k: max(r["parity"][k] for r in rows.values())
+                       for k in ("mismatch", "max_abs_err")},
+            "by_shape": rows}
 
 
 def probe_library_call(probe, inputs):
@@ -4265,6 +4345,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     df_rows = depth_filter_times(dev)
     gn_rows = gn_kernel_times(dev)
+    maps_row = maps_kernel_times(dev)
     if opts.kernels_only:
         kernels_only_k3_p2(dev)
         return 0
@@ -4567,6 +4648,21 @@ def main(argv=None) -> int:
             "parity": gn_rows[name]["parity"], "tolerance": GN_TOL,
             "by_shape": gn_rows[name]["by_shape"],
         } for name in ("p2p_sums", "p2p_solve")),
+        {
+            "name": "p2p_maps", "route": "cuda",
+            "source": "open3d_tpu_torch/csrc/point_to_plane.cu",
+            "replaces": "open3d_tpu_torch/pipelines/odometry.py's eager point-to-plane level maps "
+                        "(create_vertex_map, create_normal_map, _LevelData; "
+                        "open3d_tpu/pipelines/odometry.py, no Pallas kernel)",
+            "launches": launches["o3dt_p2p_maps"],
+            "launches_by_path": by_path(("o3dt_p2p_maps",), odometry_paths),
+            "max_abs_err": maps_row["parity"]["max_abs_err"],
+            **{k: maps_row[k] for k in ("ms", "cold_ms", "plain_ms", "spread_ms",
+                                        "cold_spread_ms", "bound_ms", "bound_by")},
+            "kernel_ms": maps_row["ms"], "times": MEDIAN_TIMES, "library_ms": None,
+            "parity": maps_row["parity"], "tolerance": MAPS_TOL,
+            "by_shape": maps_row["by_shape"],
+        },
         *probe_kernels,
     ]
     for k in probe_kernels:

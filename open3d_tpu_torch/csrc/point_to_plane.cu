@@ -41,6 +41,26 @@
 // validity (1 B) and the gathered target rows (24 B a valid pixel): ~11 MB,
 // ~3.3 us at 3.35 TB/s. solve_kernel reads ~300 rows of 128 B and is bound by
 // its latency (the serial solve of thread 0).
+//
+// maps_kernel builds a level's inputs to the two: thread p writes pixel p's
+// source vertex and its validity and pixel p's target row of vertex and
+// normal (the two depths may differ in shape: a SLAM step's first model
+// depth is the frame's, not the raycast's). A vertex is
+// ((x - cx) * (1 / fx) * d, (y - cy) * (1 / fy) * d, d), 0 where d <= 0,
+// each product rounded alone: PyTorch's CUDA division by a Python scalar
+// multiplies by its float32 reciprocal. The normal is the forward-difference
+// one of geometry/image.py:create_normal_map, from the right and down
+// neighbours' vertices (0 past the last column and row), in the order the
+// card's eager operations take: the cross product as linalg.cross's kernel
+// compiles (a * b - c * d as fmaf(a, b, -(c * d))), the squared norm as the
+// reduction over three elements sums it ((x0^2 + x2^2) + x1^2, each square
+// rounded, its two threads' partials in that order), sqrtf and an IEEE
+// division, and the orientation's dot product summed in that order too. Given
+// a normal map, it copies it in place of the computed one. It replaces
+// create_vertex_map twice, create_normal_map, the packing torch.cat and
+// _LevelData's dead erode_mask: ~660 eager operations a track frame.
+// Bound: it reads 8 B a pixel and writes 37 B: at 640x480 2.5 MB in, 11.4 MB
+// out, ~4 us at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 namespace {
@@ -240,6 +260,70 @@ __global__ void __launch_bounds__(kThreads) solve_kernel(const float* __restrict
   *rmse = static_cast<float>(sqrt(tot[27] / fmax(tot[kTerms], 1.0)));
 }
 
+// A pixel's camera-frame vertex: ((x - cx) * inv_fx * d, (y - cy) * inv_fy * d, d), or 0
+// where d <= 0 (or is NaN).
+__device__ __forceinline__ void vertex(float d, int x, int y, float inv_fx, float inv_fy, float cx,
+                                       float cy, float v[3]) {
+  const bool ok = d > 0.0f;
+  v[0] = ok ? ((static_cast<float>(x) - cx) * inv_fx) * d : 0.0f;
+  v[1] = ok ? ((static_cast<float>(y) - cy) * inv_fy) * d : 0.0f;
+  v[2] = ok ? d : 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreads) maps_kernel(
+    const float* __restrict__ src_depth, const float* __restrict__ tgt_depth,
+    const float* __restrict__ tgt_normals, float* __restrict__ src_pts,
+    bool* __restrict__ src_valid, float* __restrict__ tgt_rows, int hs, int ws, int H, int W,
+    float fx, float fy, float cx, float cy) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  // 1 / fx as PyTorch takes it on the host: float32, correctly rounded
+  const float inv_fx = 1.0f / fx, inv_fy = 1.0f / fy;
+  if (p < hs * ws) {
+    const int ys = p / ws;
+    float s[3];
+    vertex(__ldg(src_depth + p), p - ys * ws, ys, inv_fx, inv_fy, cx, cy, s);
+    src_pts[3 * p] = s[0];
+    src_pts[3 * p + 1] = s[1];
+    src_pts[3 * p + 2] = s[2];
+    src_valid[p] = s[2] > 0.0f;
+  }
+  if (p >= H * W) return;
+  const int y = p / W, x = p - y * W;
+  float t[3];
+  vertex(__ldg(tgt_depth + p), x, y, inv_fx, inv_fy, cx, cy, t);
+  float* row = tgt_rows + 6 * static_cast<size_t>(p);
+  row[0] = t[0];
+  row[1] = t[1];
+  row[2] = t[2];
+  if (tgt_normals != nullptr) {
+    row[3] = __ldg(tgt_normals + 3 * p);
+    row[4] = __ldg(tgt_normals + 3 * p + 1);
+    row[5] = __ldg(tgt_normals + 3 * p + 2);
+    return;
+  }
+  float r[3] = {0.0f, 0.0f, 0.0f}, dn[3] = {0.0f, 0.0f, 0.0f};
+  if (x + 1 < W) vertex(__ldg(tgt_depth + p + 1), x + 1, y, inv_fx, inv_fy, cx, cy, r);
+  if (y + 1 < H) vertex(__ldg(tgt_depth + p + W), x, y + 1, inv_fx, inv_fy, cx, cy, dn);
+  float n[3] = {0.0f, 0.0f, 0.0f};
+  if (t[2] > 0.0f && r[2] > 0.0f && dn[2] > 0.0f) {
+    const float a[3] = {r[0] - t[0], r[1] - t[1], r[2] - t[2]};
+    const float b[3] = {dn[0] - t[0], dn[1] - t[1], dn[2] - t[2]};
+    const float c[3] = {fmaf(a[1], b[2], -(a[2] * b[1])), fmaf(a[2], b[0], -(a[0] * b[2])),
+                        fmaf(a[0], b[1], -(a[1] * b[0]))};
+    const float sq = (c[0] * c[0] + c[2] * c[2]) + c[1] * c[1];
+    const float norm = clamp_min(sqrtf(sq), 1e-12f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) n[k] = c[k] / norm;
+    if ((n[0] * t[0] + n[2] * t[2]) + n[1] * t[1] > 0.0f) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) n[k] = -n[k];
+    }
+  }
+  row[3] = n[0];
+  row[4] = n[1];
+  row[5] = n[2];
+}
+
 }  // namespace
 
 // The number of CTAs (rows of partials) sums_kernel takes for n source pixels.
@@ -269,5 +353,19 @@ extern "C" int o3dt_p2p_solve(const void* partials, int n_blocks, void* T, void*
   solve_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(partials), n_blocks, static_cast<float*>(T),
       static_cast<float*>(rmse), damping);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A level's maps: src_pts (hs * ws, 3) and src_valid (hs * ws,) bool from the
+// (hs, ws) source depth, tgt_rows (ht, wt, 6) the (ht, wt) target's vertex and
+// normal, the normal copied from tgt_normals (ht, wt, 3) where that is not null.
+extern "C" int o3dt_p2p_maps(const void* src_depth, const void* tgt_depth, const void* tgt_normals,
+                             void* src_pts, void* src_valid, void* tgt_rows, int hs, int ws, int ht,
+                             int wt, float fx, float fy, float cx, float cy, void* stream) {
+  const int n = hs * ws > ht * wt ? hs * ws : ht * wt;
+  maps_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src_depth), static_cast<const float*>(tgt_depth),
+      static_cast<const float*>(tgt_normals), static_cast<float*>(src_pts),
+      static_cast<bool*>(src_valid), static_cast<float*>(tgt_rows), hs, ws, ht, wt, fx, fy, cx, cy);
   return static_cast<int>(cudaGetLastError());
 }

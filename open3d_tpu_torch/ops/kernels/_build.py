@@ -202,6 +202,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.o3dt_p2p_sums.restype = I
     lib.o3dt_p2p_solve.argtypes = [P, I, P, P, ctypes.c_double, P]  # partials, CTAs, T, rmse, damping
     lib.o3dt_p2p_solve.restype = I
+    lib.o3dt_p2p_maps.argtypes = [
+        P, P, P,  # source depth, target depth, target normals (or null)
+        P, P, P,  # source points, their validity, target rows
+        I, I, I, I,  # source H, W, target H, W
+        F, F, F, F,  # fx fy cx cy
+        P,  # stream
+    ]
+    lib.o3dt_p2p_maps.restype = I
     lib.o3dt_error_string.argtypes = [I]
     lib.o3dt_error_string.restype = ctypes.c_char_p
 

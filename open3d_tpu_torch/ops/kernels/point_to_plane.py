@@ -1,13 +1,16 @@
 """The point-to-plane Gauss-Newton iteration of the dense odometry
 (`pipelines/odometry.py`) as two kernels: the rows and their sums, then the
-solve and the update of the pose.
+solve and the update of the pose; and a third that builds a pyramid
+level's inputs to them.
 
 `iterate` and `residual_sums` launch the CUDA kernels in
 `csrc/point_to_plane.cu` for a `Level` of CUDA tensors, on the current
 stream, and run `iterate_plain` and `residual_sums_plain`, the same steps
-in plain PyTorch, for CPU tensors. Nothing falls back: a CUDA tensor either
-launches the kernels or raises. The plain pieces the odometry's other
-methods share (`project`, `nearest_sample`, `huber_weight`) live here too.
+in plain PyTorch, for CPU tensors; `maps` launches the maps kernel for CUDA
+depths and runs `maps_plain` for CPU ones. Nothing falls back: a CUDA
+tensor either launches the kernels or raises. The plain pieces the
+odometry's other methods share (`project`, `nearest_sample`,
+`huber_weight`) live here too.
 
 Replaces: open3d_tpu_torch/pipelines/odometry.py's point-to-plane
 iteration (`_rows_point_to_plane`, `Jw.T @ J`, `Jw.T @ r`,
@@ -37,6 +40,30 @@ reductions pick their own; and the solve, the exponential and the product
 exp(xi) T, in double and rounded to float32 once, where the plain ones run
 in float32. So the pose agrees with `iterate_plain`'s at float32 rounding,
 not bit for bit; the valid count is exact wherever P rounds alike.
+
+The maps. Replaces: the point-to-plane level of
+open3d_tpu_torch/pipelines/odometry.py, `create_vertex_map` of the source
+and the target, `create_normal_map` of the target (geometry/image.py) and
+`_LevelData`'s packing, whose `erode_mask` and gradient-validity rows only
+the intensity and hybrid rows read: ~165 eager operations a level on the
+card, ~660 a track frame (three levels and the final metrics), against one
+launch. Bound: a pixel reads its two depths (8 B; the target's right and
+down neighbours come from L1 and L2) and writes 37 B (the source point,
+its validity, the target's row of six floats): at 640x480 2.5 MB in and
+11.4 MB out, ~4 us at 3.35 TB/s, irrelevant next to the ~660 launches it
+replaces. With a given normal map it reads 12 B a pixel more.
+Function: `maps_plain`: src_pts = create_vertex_map(src).reshape(-1, 3),
+src_valid = its z > 0, tgt_vtx_nrm = cat(create_vertex_map(tgt), the given
+normals or create_normal_map of that vertex map).
+Rounding: the kernel repeats the card's eager operations in their order,
+so on the same card its outputs are bit-equal to `maps_plain`'s. The
+vertex maps are a subtract, a multiply by the float32 reciprocal of fx (fy)
+(PyTorch's CUDA division by a Python scalar) and a multiply by the depth,
+nothing fused; the normal takes `linalg.cross`'s compiled order (one fused
+multiply-add a component), the squared norm and the orientation's dot
+product the order of PyTorch's reduction over three elements ((e0 + e2) +
+e1), then sqrtf and an IEEE division. On the CPU, where PyTorch divides
+by the scalar, `maps_plain` is the eager composition itself.
 """
 
 from __future__ import annotations
@@ -44,6 +71,7 @@ from __future__ import annotations
 import torch
 
 from open3d_tpu_torch.core import lie, linalg
+from open3d_tpu_torch.geometry import image as im
 from open3d_tpu_torch.ops.kernels import _build
 from open3d_tpu_torch.ops.kernels._plain import check_tensor as _check
 from open3d_tpu_torch.ops.kernels._plain import fma
@@ -182,6 +210,48 @@ def iterate(lv: Level, T: torch.Tensor) -> torch.Tensor:
     _launch_sums(lv, T)
     _launch_solve(lv, T)
     return lv.rmse
+
+
+def maps_plain(src_depth, tgt_depth, intr, tgt_normals=None):
+    """A level's inputs in plain PyTorch on any device: (src_pts (HW, 3),
+    src_valid (HW,), tgt_vtx_nrm (H', W', 6)) of the (H, W) source and (H',
+    W') target depths, the target's normals given (H', W', 3) or computed."""
+    src_pts = im.create_vertex_map(src_depth, intr).reshape(-1, 3)
+    tgt_vtx = im.create_vertex_map(tgt_depth, intr)
+    nrm = im.create_normal_map(tgt_vtx) if tgt_normals is None else tgt_normals
+    return src_pts, src_pts[:, 2] > 0, torch.cat([tgt_vtx, nrm], dim=-1)
+
+
+def maps(src_depth: torch.Tensor, tgt_depth: torch.Tensor, intr, tgt_normals=None):
+    """A level's inputs to the iteration, as `maps_plain` returns them, from
+    non-empty 2-D float32 contiguous source and target depths on one device
+    (a SLAM step's first model depth may differ in shape from the frame's)
+    and the level's intrinsic; `tgt_normals`, float32 contiguous and of the
+    target's shape with 3 channels, takes the place of the target's computed
+    normals. On a card: one launch of the maps kernel into fresh tensors; on
+    the CPU: maps_plain."""
+    dev = src_depth.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"point_to_plane.maps: unsupported device {dev}")
+    for name, depth in (("src_depth", src_depth), ("tgt_depth", tgt_depth)):
+        _check(name, depth, torch.float32, dev)
+        if depth.ndim != 2 or depth.numel() == 0:
+            raise ValueError(f"{name}: expected a non-empty (H, W) image, got shape "
+                             f"{tuple(depth.shape)}")
+    Hs, Ws = src_depth.shape
+    H, W = tgt_depth.shape
+    if tgt_normals is not None:
+        _check("tgt_normals", tgt_normals, torch.float32, dev, (H, W, 3))
+    if dev.type == "cpu":
+        return maps_plain(src_depth, tgt_depth, intr, tgt_normals)
+    src_pts = torch.empty((Hs * Ws, 3), dtype=torch.float32, device=dev)
+    src_valid = torch.empty((Hs * Ws,), dtype=torch.bool, device=dev)
+    tgt_vtx_nrm = torch.empty((H, W, 6), dtype=torch.float32, device=dev)
+    _build.launch("o3dt_p2p_maps", dev, src_depth.data_ptr(), tgt_depth.data_ptr(),
+                  None if tgt_normals is None else tgt_normals.data_ptr(), src_pts.data_ptr(),
+                  src_valid.data_ptr(), tgt_vtx_nrm.data_ptr(), Hs, Ws, H, W, intr.fx, intr.fy,
+                  intr.cx, intr.cy)
+    return src_pts, src_valid, tgt_vtx_nrm
 
 
 def residual_sums(lv: Level, T: torch.Tensor):

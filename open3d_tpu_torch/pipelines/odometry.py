@@ -12,10 +12,11 @@ Each pass of the loop counts one in `odometry.gn_iterations`; the pyramid
 builds, each level and the final metrics are the spans `odometry.pyramid`,
 `odometry.level` (attribute `level`) and `odometry.final`.
 
-Point-to-plane runs its iteration through `ops/kernels/point_to_plane.py`:
-on CUDA tensors two kernel launches an iteration and one for the final
-metrics, on CPU tensors the same steps in plain PyTorch. Intensity and
-hybrid run the eager loop `_gn_level`.
+Point-to-plane runs through `ops/kernels/point_to_plane.py`: on CUDA
+tensors one launch builds a level's source points and target rows (at each
+level and for the final metrics), two launches run an iteration and one
+the final metrics; on CPU tensors the same steps run in plain PyTorch.
+Intensity and hybrid build `_LevelData` and run the eager loop `_gn_level`.
 
 JtJ is a float32 matmul: it assumes torch.backends.cuda.matmul.allow_tf32
 is False (PyTorch's default), as TF32 keeps only about three digits.
@@ -68,11 +69,12 @@ class OdometryResult:
 
 
 class _LevelData:
-    """Per-pyramid-level maps, flattened to (HW, ...) rows. Target maps that
-    one warp samples together are packed on the channel axis, so each
-    association is one row gather: vertex + normal for point-to-plane,
-    depth + intensity for the bilinear warp, vertex + gradient validity for
-    the nearest-pixel lookup."""
+    """Per-pyramid-level maps of the intensity and hybrid methods, flattened
+    to (HW, ...) rows (point-to-plane builds its own with `p2p.maps`).
+    Target maps that one warp samples together are packed on the channel
+    axis, so each association is one row gather: vertex + normal, depth +
+    intensity for the bilinear warp, vertex + gradient validity for the
+    nearest-pixel lookup."""
 
     def __init__(self, src_vtx, src_inten, tgt_vtx, tgt_nrm, tgt_inten, intr):
         self.intr = intr
@@ -160,9 +162,25 @@ _ROWS = {INTENSITY: _rows_intensity, HYBRID: _rows_hybrid}
 _METHODS = (POINT_TO_PLANE, INTENSITY, HYBRID)
 
 
-def _p2p_level(ld: _LevelData, loss: OdometryLossParams) -> p2p.Level:
-    return p2p.Level(ld.src_pts, ld.src_valid, ld.tgt_vtx_nrm, ld.intr,
-                     loss.depth_outlier_trunc, loss.depth_huber_delta)
+def _level_data(src_depth, tgt_depth, tgt_nrm, src_inten, tgt_inten, intr) -> _LevelData:
+    """The intensity and hybrid methods' maps of one level; `tgt_nrm` None
+    computes the target's normals."""
+    src_vtx = im.create_vertex_map(src_depth, intr)
+    tgt_vtx = im.create_vertex_map(tgt_depth, intr)
+    if tgt_nrm is None:
+        tgt_nrm = im.create_normal_map(tgt_vtx)
+    return _LevelData(src_vtx, src_inten, tgt_vtx, tgt_nrm, tgt_inten, intr)
+
+
+def _p2p_level(src_depth, tgt_depth, tgt_nrm, intr, loss: OdometryLossParams) -> p2p.Level:
+    """Point-to-plane's inputs of one level: one launch of the maps kernel
+    on a card; `tgt_nrm` None computes the target's normals. The caller's
+    depth and normals may be strided views (the finest level is the
+    caller's own image); `contiguous` copies only those."""
+    if tgt_nrm is not None:
+        tgt_nrm = tgt_nrm.contiguous()
+    return p2p.Level(*p2p.maps(src_depth.contiguous(), tgt_depth.contiguous(), intr, tgt_nrm),
+                     intr, loss.depth_outlier_trunc, loss.depth_huber_delta)
 
 
 def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, loss):
@@ -185,11 +203,11 @@ def _gn_level(ld: _LevelData, T, rows, criteria: OdometryConvergenceCriteria, lo
     return T
 
 
-def _gn_level_point_to_plane(ld: _LevelData, T, criteria: OdometryConvergenceCriteria, loss):
-    """`_gn_level` for point-to-plane: each pass is one `p2p.iterate`, which
-    updates T in place (the two kernels on a card, plain PyTorch on the
-    CPU); the same read of the RMSE and the same convergence rule."""
-    lv = _p2p_level(ld, loss)
+def _gn_level_point_to_plane(lv: p2p.Level, T, criteria: OdometryConvergenceCriteria):
+    """`_gn_level` for point-to-plane, on a `p2p.Level` (which holds the
+    loss's parameters): each pass is one `p2p.iterate`, which updates T in place (the
+    two kernels on a card, plain PyTorch on the CPU); the same read of the
+    RMSE and the same convergence rule."""
     prev_rmse = None
     for it in range(criteria.max_iteration):
         count("odometry.gn_iterations")
@@ -246,38 +264,30 @@ def rgbd_odometry_multi_scale(
             if bilateral_filter:
                 td = im.filter_bilateral_depth(td)
                 sd = im.filter_bilateral_depth(sd)
-            src_vtx = im.create_vertex_map(sd, intr_l)
-            tgt_vtx = im.create_vertex_map(td, intr_l)
-            tgt_nrm = (tgt_nrm_pyr[lvl] if tgt_nrm_pyr is not None
-                       else im.create_normal_map(tgt_vtx))
-            ld = _LevelData(
-                src_vtx, src_int_pyr[lvl] if use_intensity else None, tgt_vtx, tgt_nrm,
-                tgt_int_pyr[lvl] if use_intensity else None, intr_l,
-            )
+            tgt_nrm = tgt_nrm_pyr[lvl] if tgt_nrm_pyr is not None else None
             crit = criteria[n_levels - 1 - lvl]
             if method == POINT_TO_PLANE:
-                T = _gn_level_point_to_plane(ld, T, crit, loss)
+                lv = _p2p_level(sd, td, tgt_nrm, intr_l, loss)
+                T = _gn_level_point_to_plane(lv, T, crit)
             else:
+                ld = _level_data(sd, td, tgt_nrm, src_int_pyr[lvl], tgt_int_pyr[lvl], intr_l)
                 T = _gn_level(ld, T, _ROWS[method], crit, loss)
 
     # final metrics at the finest level
     with span("odometry.final"):
-        tgt_vtx0 = im.create_vertex_map(tgt_depth_pyr[0], intrinsic)
-        ld = _LevelData(
-            im.create_vertex_map(src_depth_pyr[0], intrinsic),
-            src_int_pyr[0] if use_intensity else None,
-            tgt_vtx0,
-            tgt_nrm_pyr[0] if tgt_nrm_pyr is not None else im.create_normal_map(tgt_vtx0),
-            tgt_int_pyr[0] if use_intensity else None,
-            intrinsic,
-        )
+        tgt_nrm = tgt_nrm_pyr[0] if tgt_nrm_pyr is not None else None
         if method == POINT_TO_PLANE:
-            sum_r2, n_in = p2p.residual_sums(_p2p_level(ld, loss), T)
+            lv = _p2p_level(src_depth_pyr[0], tgt_depth_pyr[0], tgt_nrm, intrinsic, loss)
+            sum_r2, n_in = p2p.residual_sums(lv, T)
+            src_valid = lv.src_valid
         else:
+            ld = _level_data(src_depth_pyr[0], tgt_depth_pyr[0], tgt_nrm, src_int_pyr[0],
+                             tgt_int_pyr[0], intrinsic)
             _, r, w, valid = _ROWS[method](ld, T, loss)
             sum_r2 = torch.sum(torch.where(w > 0, r * r, 0.0))
             n_in = torch.sum(valid.to(torch.float32))
-        n_src = torch.clamp(torch.sum(ld.src_valid.to(torch.float32)), min=1.0)
+            src_valid = ld.src_valid
+        n_src = torch.clamp(torch.sum(src_valid.to(torch.float32)), min=1.0)
         rmse = torch.sqrt(sum_r2 / torch.clamp(n_in, min=1.0))
     return OdometryResult(transformation=T, fitness=n_in / n_src, inlier_rmse=rmse)
 

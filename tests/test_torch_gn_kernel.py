@@ -56,7 +56,8 @@ def holey_frames(n_levels, intr, seed=0, device="cpu", hole_share=0.2):
 
 
 def level_of(ld):
-    return odom._p2p_level(ld, LOSS)
+    return p2p.Level(ld.src_pts, ld.src_valid, ld.tgt_vtx_nrm, ld.intr, LOSS.depth_outlier_trunc,
+                     LOSS.depth_huber_delta)
 
 
 def eager_rows(ld, T, loss):
@@ -78,8 +79,12 @@ def eager_iteration(ld, T, monkeypatch):
 def eager_odometry(monkeypatch):
     """Route point-to-plane odometry through the eager loop and plain final
     sums on any device."""
-    def loop(ld, T, criteria, loss):
-        return odom._gn_level(ld, T, eager_rows, criteria, loss)
+    def level_rows(lv, T, loss):
+        return p2p.rows_plain(lv.src_pts, lv.src_valid, lv.tgt_vtx_nrm, T, lv.intr, lv.trunc,
+                              lv.delta)
+
+    def loop(lv, T, criteria):
+        return odom._gn_level(lv, T, level_rows, criteria, None)
 
     monkeypatch.setattr(odom, "_gn_level_point_to_plane", loop)
     monkeypatch.setattr(p2p, "residual_sums", p2p.residual_sums_plain)
@@ -339,7 +344,8 @@ class TestOnCard:
     def test_tracking_matches_the_eager_loop(self, cuda, stride, normals, monkeypatch):
         """track_frame_to_model through the kernels against the same call on
         the eager loop: within 1e-6 m and 1e-6 rad, in as many iterations,
-        with two launches a kernel iteration and one for the final metrics."""
+        with two launches a kernel iteration and one for the final metrics,
+        and the maps kernel once a level and once for the final metrics."""
         from open3d_tpu_torch.models import dense_slam
 
         depths, _, _, intr = synthetic.render_sequence(2, intrinsic=INTR, span=0.1, device=cuda)
@@ -370,6 +376,7 @@ class TestOnCard:
         launched = _build.launch_counts() - n
         assert launched["o3dt_p2p_solve"] == its
         assert (launched["o3dt_p2p_sums"], launched["o3dt_p2p_solve"]) == (its + 1, its)
+        assert launched["o3dt_p2p_maps"] == 4
         eager_odometry(monkeypatch)
         n = _build.launch_counts()
         want, eager_counts = run()
@@ -404,10 +411,11 @@ class TestOnCard:
             raise AssertionError("the point-to-plane path ran")
 
         for mod, name in ((odom, "_gn_level_point_to_plane"), (p2p, "iterate"),
-                          (p2p, "residual_sums"), (p2p, "Level")):
+                          (p2p, "residual_sums"), (p2p, "Level"), (p2p, "maps")):
             monkeypatch.setattr(mod, name, refuse)
         b = odom.rgbd_odometry_multi_scale(src, tgt, INTR, method=method)
         launched = _build.launch_counts() - n
         assert (launched["o3dt_p2p_sums"], launched["o3dt_p2p_solve"]) == (0, 0)
+        assert launched["o3dt_p2p_maps"] == 0
         for x, y in zip(a.__dict__.values(), b.__dict__.values()):
             assert torch.equal(x, y)
